@@ -26,6 +26,9 @@ class AABB:
     def union(self, other: "AABB") -> "AABB":
         return AABB(np.minimum(self.min, other.min), np.maximum(self.max, other.max))
 
+    def intersects(self, other: "AABB") -> bool:
+        return bool(np.all(self.min <= other.max) and np.all(other.min <= self.max))
+
     def corners(self) -> np.ndarray:
         """All 8 corners, [8, 3]."""
         mn, mx = self.min, self.max

@@ -79,6 +79,24 @@ def perspective_vk(fovy_radians: float, aspect: float, near: float, far: float) 
     return (KCLIP @ perspective_zo(fovy_radians, aspect, near, far)).astype(np.float32)
 
 
+def ortho_zo(left, right, bottom, top, z_near, z_far) -> np.ndarray:
+    """glm::orthoRH_ZO — used for the directional shadow projection
+    (``ShadowSystem.cpp:195-200``)."""
+    m = np.eye(4, dtype=np.float32)
+    m[0, 0] = 2.0 / (right - left)
+    m[1, 1] = 2.0 / (top - bottom)
+    m[2, 2] = -1.0 / (z_far - z_near)
+    m[0, 3] = -(right + left) / (right - left)
+    m[1, 3] = -(top + bottom) / (top - bottom)
+    m[2, 3] = -z_near / (z_far - z_near)
+    return m
+
+
+def ortho_vk(left, right, bottom, top, z_near, z_far) -> np.ndarray:
+    """``kClip @ orthoRH_ZO`` — shadow projection (``ShadowSystem.cpp:195-204``)."""
+    return (KCLIP @ ortho_zo(left, right, bottom, top, z_near, z_far)).astype(np.float32)
+
+
 def translate(v) -> np.ndarray:
     m = np.eye(4, dtype=np.float32)
     m[:3, 3] = np.asarray(v, dtype=np.float32)
@@ -116,3 +134,33 @@ def normal_matrix(m: np.ndarray) -> np.ndarray:
     return np.linalg.inv(np.asarray(m, dtype=np.float32)[:3, :3]).T.astype(np.float32)
 
 
+def directional_light_view(light_direction: np.ndarray) -> np.ndarray:
+    """View matrix for a directional light looking along ``light_direction``
+    from the origin.
+
+    The reference's ``ComputeDirectionalLightViewMatrix``
+    (``ShadowSystem.cpp:130-147``) reads an uninitialized ``up`` (UB, noted
+    in SURVEY.md as a quirk NOT to replicate); we build a correct
+    orthonormal basis with the same *intended* behavior: pick a reference
+    axis not parallel to the light, derive up, and look from the origin.
+    """
+    d = normalize(light_direction)
+    ref = np.array([0.0, 0.0, 1.0], dtype=np.float32)
+    if abs(float(np.dot(d, ref))) > 0.9999:
+        ref = np.array([1.0, 0.0, 0.0], dtype=np.float32)
+    right = normalize(np.cross(d, ref))
+    up = np.cross(right, d)
+    return look_at(np.zeros(3, dtype=np.float32), d, up)
+
+
+def frustum_corners_world(view: np.ndarray, proj: np.ndarray) -> np.ndarray:
+    """The 8 NDC cube corners unprojected to world space
+    (``Camera.cpp:3-25``). NDC z in [0, 1] (Vulkan)."""
+    inv = np.linalg.inv((proj @ view).astype(np.float64))
+    corners = []
+    for x in (-1.0, 1.0):
+        for y in (-1.0, 1.0):
+            for z in (0.0, 1.0):
+                p = inv @ np.array([x, y, z, 1.0])
+                corners.append(p[:3] / p[3])
+    return np.asarray(corners, dtype=np.float32)

@@ -1,51 +1,53 @@
 """The frame pipeline (torch port of the JAX package's ``graph/frame.py``,
-opaque per-pixel subset).
+per-pixel path).
 
 This layer replaces the reference's command-buffer recording + render
 passes (``RenderScene::Render``, ``RenderScene.cpp:168-242``) as straight
-function composition over tensors: opaque base pass -> clear fill -> sRGB
+function composition over tensors: shadow depth pass -> opaque base pass
+-> alpha-mask cutoff pass -> skybox -> depth-peeled translucency -> sRGB
 encode. PyTorch runs eagerly, so there is no per-config compile cache;
-``FrameRenderer`` uploads the scene once and marshals one packed uniform
-vector per frame.
+``FrameRenderer`` uploads the scene once, sizes the static budgets from
+the initial camera, caches the shadow maps until ``mark_shadows_dirty()``
+and marshals one packed uniform vector per frame.
 
-Not ported yet, and refused by ``FrameRenderer`` rather than skipped:
-shadows, the skybox, translucency, the alpha-mask pass, the editor grid,
-the shadow-quad overlay, supersampling, IBL diffuse and texture-space
-shading (``ROADMAP.md`` Queue 1).
+Not ported yet, and refused by ``FrameRenderer`` rather than skipped: the
+editor grid, the shadow-quad overlay and texture-space shading
+(``ROADMAP.md`` Queue 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ..core.config import RasterConfig, RenderConfig, ShadingModel
+from ..core.config import CullMode, RasterConfig, RenderConfig, ShadingModel
 from ..device import resolve_device
 from ..raster import binning
 from ..raster import cuda_raster
 from ..raster import reference_raster as rref
 from ..raster.setup import (VertexOutputs, clip_coords, corner_clip,
-                            triangle_setup, triangle_setup_corners, viewproj)
+                            restrict_rows, triangle_setup,
+                            triangle_setup_corners, viewproj)
 from ..scene.camera import ViewProperties
+from ..shading import fitting
 from ..shading import grid as grid_mod
 from ..shading import pbr, phong, skybox
+from ..shading import shadow as shadow_mod
 from ..shading.srgb import encode_srgb8
 from . import uniforms
 from .uniforms import unpack_params
 
 BACKENDS = ("reference", "cuda")
 
+_log = logging.getLogger(__name__)
+
 # config switches of features that later slices port, with the slice each
 # waits for (ROADMAP.md Queue 1)
 _UNPORTED = (
-    ("shadows", "the shadow slice"),
-    ("skybox", "the sky/translucency/IBL slice"),
-    ("translucency", "the sky/translucency/IBL slice"),
-    ("ibl_diffuse", "the sky/translucency/IBL slice"),
-    ("alpha_mask", "the rest-of-the-frame slice"),
     ("grid", "the rest-of-the-frame slice"),
     ("show_shadow_quad", "the rest-of-the-frame slice"),
     ("texture_space", "the texture-space slice"),
@@ -62,10 +64,23 @@ def check_config(config: RenderConfig) -> None:
             raise NotImplementedError(
                 f"RenderConfig.{name}=True is not ported yet: it arrives "
                 f"with {slice_}; set {name}=False")
-    if config.ssaa > 1:
-        raise NotImplementedError(
-            "RenderConfig.ssaa>1 is not ported yet: it arrives with the "
-            "rest-of-the-frame slice; set ssaa=1")
+
+
+def _static_shadow_lights(dev_np: dict) -> tuple:
+    """Per-light "pays the shadow lookup" flags, decided once on the host
+    so lights without a map skip the PCF window gather. 0 = no lookup;
+    1 = planar map (directional or spot); 6 = point-light cube (six
+    consecutive face maps)."""
+    lt = np.asarray(dev_np["light_type"])
+    si = np.asarray(dev_np["light_shadow_index"])
+    nl = int(np.asarray(dev_np["n_lights"]))
+
+    def flag(i: int) -> int:
+        if not (i < nl and si[i] >= 0):
+            return 0
+        return {1: 1, 2: 6, 3: 1}.get(int(lt[i]), 0)
+
+    return tuple(flag(i) for i in range(lt.shape[0]))
 
 
 def scene_to_device(dev_np: dict, device) -> dict:
@@ -95,20 +110,41 @@ def cached_vertex_outputs(scene, view, proj) -> VertexOutputs:
     return VertexOutputs(world, scene["world_normal"], scene["uvs"], clip)
 
 
+def _effective_tiles(rc: RasterConfig, backend: str) -> tuple[int, int]:
+    """Binning tile dims per backend: the ``cuda`` kernel owns its 8x32
+    tile; everything else counts in the RasterConfig's shade tiles."""
+    if backend == "cuda":
+        return cuda_raster.TILE_H, cuda_raster.TILE_W
+    return rc.tile_h, rc.tile_w
+
+
 def rasterize(setup, height: int, width: int, backend: str,
-              attr_planes=None, tri_mat=None, prepared=None,
-              max_pairs: int | None = None):
-    """Raster backend dispatch. Returns (GBuffer, attrs-or-None): the
-    ``cuda`` backend interpolates vertex attributes in-kernel when
-    ``attr_planes`` is given, and fills GBuffer.mat_id when ``tri_mat``
-    is given."""
+              y0: int = 0, full_height: int | None = None,
+              peel_bounds=None, attr_planes=None, tri_mat=None,
+              prepared=None, max_pairs: int | None = None,
+              active_tiles: int | None = None, peel_layers: int = 1):
+    """Raster backend dispatch. ``y0``/``full_height`` render a row slice
+    of a taller viewport. Returns (GBuffer, attrs-or-None): the ``cuda``
+    backend interpolates vertex attributes in-kernel when ``attr_planes``
+    is given, and fills GBuffer.mat_id when ``tri_mat`` is given.
+    ``prepared`` reuses a bin+pack across peel layers; ``peel_layers=2``
+    (``cuda`` only) returns the two nearest layers of one launch as
+    [(g, attrs), (g, attrs)]."""
     if backend == "cuda":
         out = cuda_raster.rasterize_cuda(
-            setup, height, width, max_pairs=max_pairs, attr_planes=attr_planes,
-            tri_mat=tri_mat, prepared=prepared)
+            setup, height, width, max_pairs=max_pairs, y0=y0,
+            full_height=full_height, peel_bounds=peel_bounds,
+            attr_planes=attr_planes, tri_mat=tri_mat, prepared=prepared,
+            active_tiles=active_tiles, peel_layers=peel_layers)
+        if peel_layers == 2:
+            return out
         return (out, None) if isinstance(out, rref.GBuffer) else out
+    if peel_layers == 2:
+        raise ValueError("peel_layers=2 is a cuda-only fast path")
     if backend == "reference":
-        return rref.rasterize_reference(setup, height, width), None
+        return rref.rasterize_reference(
+            setup, height, width, y0=y0, full_height=full_height,
+            peel_bounds=peel_bounds), None
     raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
 
 
@@ -143,49 +179,221 @@ def resolve_attributes(scene, vo: VertexOutputs, coef, g, height: int,
     }
 
 
-def render_frame(scene, uniform, config: RenderConfig, backend: str = "cuda",
-                 slots_used=(True, True, True, True)):
-    """The per-frame pass chain. scene: device dict; uniform: packed
-    per-frame float32 vector (``graph.uniforms``). Returns ([H,W,4] uint8
-    sRGB image, stats): ``pair_overflow`` counts binned pairs that did not
-    fit the static budget (nonzero means dropped triangles) and
-    ``pair_tail_overflow`` the span>dense_k pairs past the big-list cap."""
+def shade_sparse(shade_fn, frag, height: int, width: int,
+                 tile_h: int = 8, tile_w: int = 128,
+                 max_tiles: int | None = None,
+                 full_height: int | None = None):
+    """Run a resolve+shade function only on tiles with coverage — for
+    passes that touch few pixels (translucent peel layers). Covered tiles
+    are gathered into a compact pseudo-image (quad derivatives stay
+    tile-local), processed, and scattered back.
+
+    Selection is per TILE-ROW: the full-frame tile budget ``max_tiles``
+    converts to k = ceil(max_tiles / full-frame tile rows) tiles per tile
+    row, picked by per-row top-k coverage count (ties to the lowest tile
+    index: a stable descending sort, not ``torch.topk``). Each tile row's
+    selection depends only on its own pixel rows, so an image-row split
+    on tile rows selects identically. Tiles beyond k in their row go
+    unshaded (the caller counts them).
+
+    ``frag``: dict of [H,W(,C)] planes handed to ``shade_fn`` compacted;
+    must contain "covered". ``full_height``: full framebuffer height when
+    ``height`` is a slice. Returns rgba [H,W,4], zeros where unshaded.
+    """
+    nty = -(-height // tile_h)
+    ntx = -(-width // tile_w)
+    nty_full = -(-(full_height or height) // tile_h)
+    if max_tiles is None:
+        max_tiles = max(1, nty_full * ntx // 4)
+    k_row = max(1, min(-(-max_tiles // nty_full), ntx))
+    ph, pw = nty * tile_h - height, ntx * tile_w - width
+
+    def tilefy(a):
+        """[H,W(,C)] -> [nty, ntx, th, tw(,C)], zero padded."""
+        a = torch.nn.functional.pad(
+            a, (0, 0) * (a.dim() - 2) + (0, pw, 0, ph))
+        a = a.reshape(nty, tile_h, ntx, tile_w, *a.shape[2:])
+        return a.movedim(2, 1)
+
+    cov_cnt = tilefy(frag["covered"]).reshape(nty, ntx, -1).sum(-1)
+    sel = torch.sort(cov_cnt, dim=-1, descending=True,
+                     stable=True).indices[:, :k_row]         # [nty, k_row]
+    rows = torch.arange(nty, device=sel.device)[:, None]
+
+    def gather_img(a):
+        t = tilefy(a)[rows, sel]                     # [nty,k,th,tw,...]
+        return t.reshape(nty * k_row * tile_h, tile_w, *t.shape[4:])
+
+    rgba_sub = shade_fn({k: gather_img(v) for k, v in frag.items()})
+
+    # scatter tiles back
+    r = rgba_sub.reshape(nty, k_row, tile_h, tile_w, 4)
+    out = torch.zeros((nty, ntx, tile_h, tile_w, 4), dtype=rgba_sub.dtype,
+                      device=rgba_sub.device)
+    out[rows, sel] = r
+    out = out.movedim(2, 1).reshape(nty * tile_h, ntx * tile_w, 4)
+    return out[:height, :width]
+
+
+def shadow_setup(scene, light_viewproj, extent: int):
+    """Triangle setup of one shadow map's depth-only pass: every triangle
+    of the scene, front-culled to reduce peter-panning
+    (``ShadowSystem.cpp:37-53``)."""
+    c = corner_clip(scene["corner_attr"][..., 0:3], light_viewproj)
+    return triangle_setup_corners(c, scene["n_tris"], extent, extent,
+                                  CullMode.FRONT)
+
+
+def render_shadow_maps(scene, shadow_viewproj, extent: int,
+                       n_shadows: int, rc: RasterConfig, backend: str,
+                       max_pairs: int | None = None, n_slices: int = 1):
+    """Depth-only raster per shadow map (reference ``ShadowSystem::Render``).
+    shadow_viewproj: [NS,4,4]. Returns ([NS,E,E] f32, overflow): the
+    shadow views' tile spans differ from the camera view's, so their
+    binning overflow is counted separately ('overflow is counted, not
+    silent' holds for every raster pass).
+
+    One launch per map unless the caller asks for ``n_slices`` row slices
+    (a 4096^2 map is 65536 kernel tiles, well within one launch on this
+    card); slices go through the same ``y0``/``full_height`` path an
+    image-row split of the frame uses, and ``max_pairs`` is then the
+    per-slice budget."""
+    if extent % n_slices:
+        raise ValueError("n_slices must divide the shadow extent")
+    slice_h = extent // n_slices
+    maps = []
+    overflow = torch.zeros((), dtype=torch.int64,
+                           device=shadow_viewproj.device)
+    for si in range(n_shadows):
+        s = shadow_setup(scene, shadow_viewproj[si], extent)
+        budget = max_pairs or _pair_budget(s.coef.shape[0], rc.pairs_per_tri)
+        rows = []
+        for y0 in range(0, extent, slice_h):
+            ss = s if n_slices == 1 else restrict_rows(s, y0, slice_h, extent)
+            prep = None
+            if backend == "cuda":
+                prep = cuda_raster.prepare_pairs(ss, slice_h, extent,
+                                                 max_pairs=budget)
+                overflow = overflow + prep.bins.n_overflow
+            g, _ = rasterize(ss, slice_h, extent, backend, prepared=prep,
+                             max_pairs=budget, y0=y0, full_height=extent)
+            rows.append(g.depth)
+        maps.append(rows[0] if n_slices == 1 else torch.cat(rows, 0))
+    return torch.stack(maps), overflow
+
+
+def render_shadow_pass(scene, uniform, config: RenderConfig, n_shadows: int,
+                       backend: str = "cuda", max_pairs: int | None = None,
+                       return_overflow: bool = False, n_slices: int = 1):
+    """Standalone shadow depth pass, cached across frames by the caller —
+    the reference renders it once until marked dirty
+    (``RenderScene.cpp:170-181``). Returns the packed maps
+    (``shadow.ShadowPack``)."""
+    params = unpack_params(uniform, n_shadows)
+    with record_function("frame.shadow"):
+        maps, overflow = render_shadow_maps(
+            scene, params["shadow_viewproj"], config.shadow_extent,
+            n_shadows, config.raster, backend, max_pairs=max_pairs,
+            n_slices=n_slices)
+        # pack once per (cached) render: 3x3 PCF becomes one block gather
+        packed = shadow_mod.pack_shadow_blocks(maps)
+    return (packed, overflow) if return_overflow else packed
+
+
+def render_frame(scene, uniform, shadow_maps, config: RenderConfig,
+                 n_shadows: int, backend: str = "cuda",
+                 has_translucent: bool = False,
+                 slots_used=(True, True, True, True),
+                 shadow_lights=None, has_mask: bool = False):
+    """The per-frame pass chain (minus the cached shadow depth). scene:
+    device dict; uniform: packed per-frame float32 vector
+    (``graph.uniforms``); shadow_maps: ``shadow.ShadowPack`` or None.
+    Returns ([H,W,4] uint8 sRGB image, stats): ``pair_overflow`` counts
+    binned pairs that did not fit the static budget (nonzero means dropped
+    triangles), ``pair_tail_overflow`` the span>dense_k pairs past the
+    big-list cap, ``blend_pair_overflow`` everything the translucent pass
+    dropped (pairs, sparse-grid tiles, unshaded tiles), and, when they
+    apply, ``blend_shade_tiles`` [layers], ``penumbra_tiles`` and
+    ``penumbra_overflow``."""
     check_config(config)
-    params = unpack_params(uniform, 0)
+    params = unpack_params(uniform, n_shadows)
     vo = cached_vertex_outputs(scene, params["view"], params["proj"])
-    return _frame_core(scene, params, vo, config, backend, slots_used)
+    return _frame_core(scene, params, vo, shadow_maps, config, n_shadows,
+                       backend, has_translucent, slots_used,
+                       shadow_lights=shadow_lights, has_mask=has_mask)
 
 
-def opaque_setup(scene, params, config: RenderConfig):
-    """Triangle setup of the opaque pass: clip corners are a dense
+def _list_setup(scene, params, config: RenderConfig, corner_key: str, n_key,
+                cull):
+    """Triangle setup of one draw list: clip corners are a dense
     multiply-add over the STATIC per-corner attr table (scene.upload),
     not a gather."""
     fh, w = config.render_extent()
     vpm = viewproj(params["view"], params["proj"])
     return triangle_setup_corners(
-        corner_clip(scene["corner_attr"][..., 0:3], vpm), scene["n_opaque"],
-        w, fh, config.cull_mode)
+        corner_clip(scene[corner_key][..., 0:3], vpm), scene[n_key], w, fh,
+        cull)
+
+
+def opaque_setup(scene, params, config: RenderConfig, has_mask: bool = False):
+    """Triangle setup of the opaque pass. With the cutoff pass on, MASK
+    triangles leave the opaque list (they sit between ``n_opaque_strict``
+    and ``n_opaque``) and draw in their own peeled pass; otherwise they
+    draw opaque (reference parity)."""
+    n_key = ("n_opaque_strict" if (config.alpha_mask and has_mask)
+             else "n_opaque")
+    return _list_setup(scene, params, config, "corner_attr", n_key,
+                       config.cull_mode)
+
+
+def blend_setup(scene, params, config: RenderConfig):
+    """Triangle setup of the translucent draw list (culling off,
+    ``GraphicsPipelineCache.cpp:307``)."""
+    return _list_setup(scene, params, config, "corner_attr_blend", "n_blend",
+                       CullMode.NONE)
+
+
+def _list_pairs(scene, setup, config: RenderConfig, corner_key: str,
+                mat_key: str, budget: int):
+    """A draw list's binned + packed pair table for K1: 8 attribute planes
+    (pos3 | normal3 | uv2) and the material ids per pair."""
+    fh, w = config.render_extent()
+    ap = cuda_raster.attribute_planes(setup, scene[corner_key])
+    return cuda_raster.prepare_pairs(
+        setup, fh, w, max_pairs=budget, attr_planes=ap,
+        tri_mat=scene[mat_key], dense_k=config.raster.dense_k or None)
 
 
 def opaque_pairs(scene, setup, config: RenderConfig):
-    """The opaque pass's binned + packed pair table for K1: 8 attribute
-    planes (pos3 | normal3 | uv2) and the material ids per pair."""
-    fh, w = config.render_extent()
     budget = (config.raster.pair_budget
               or _pair_budget(setup.coef.shape[0],
                               config.raster.pairs_per_tri))
-    ap = cuda_raster.attribute_planes(setup, scene["corner_attr"])
-    return cuda_raster.prepare_pairs(
-        setup, fh, w, max_pairs=budget, attr_planes=ap,
-        tri_mat=scene["tri_material"], dense_k=config.raster.dense_k or None)
+    return _list_pairs(scene, setup, config, "corner_attr", "tri_material",
+                       budget)
 
 
-def _frame_core(scene, params, vo, config: RenderConfig, backend: str,
-                slots_used):
+def blend_pairs(scene, setup_t, config: RenderConfig):
+    """Bin + pack ONCE: every peel rasters the same blend geometry."""
+    budget = (config.blend_pair_budget
+              or _pair_budget(setup_t.coef.shape[0],
+                              config.raster.pairs_per_tri))
+    return _list_pairs(scene, setup_t, config, "corner_attr_blend",
+                       "blend_tri_material", budget)
+
+
+def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
+                n_shadows: int, backend: str, has_translucent: bool,
+                slots_used, shadow_lights=None, has_mask: bool = False):
     fh, w = config.render_extent()
     dev = vo.world_pos.device
-    overflow = torch.zeros((), dtype=torch.int64, device=dev)
-    tail_overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    cuda = backend == "cuda"
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    overflow, tail_overflow, blend_overflow = zero, zero, zero
+    shade_tile_counts = []   # observed covered shade tiles per peel layer
+    shadow_stats = []        # (penumbra tiles, overflow) per shadow lookup
+    shadow_tf = None
+    if config.shadows and n_shadows > 0:
+        shadow_tf = params["shadow_viewproj"]
     view_args = {
         "view_pos": params["view_pos"],
         "exposure": params["exposure"],
@@ -195,40 +403,219 @@ def _frame_core(scene, params, vo, config: RenderConfig, backend: str,
     shade_fn = (pbr.brdf_lighting if config.shading == ShadingModel.PBR
                 else phong.phong_lighting)
 
-    def shade(frag):
+    def shade(frag, covered):
         return shade_fn(scene, frag["pos"], frag["uv"], frag["normal"],
-                        frag["mat_id"], view_args, slots_used=slots_used,
+                        frag["mat_id"], view_args, shadow_maps, shadow_tf,
+                        slots_used=slots_used, shadow_lights=shadow_lights,
                         max_aniso=config.aniso(),
                         dither=config.dither_trilinear,
                         debug_views=config.debug_views,
-                        covered=frag["covered"])
+                        penumbra_tiles=config.penumbra_tile_budget,
+                        penumbra_full_h=fh, shadow_stats=shadow_stats,
+                        ibl_diffuse=config.ibl_diffuse, covered=covered)
+
+    def kernel_frag(g, attrs):
+        return {"pos": attrs[..., 0:3], "normal": attrs[..., 3:6],
+                "uv": attrs[..., 6:8], "mat_id": g.mat_id}
+
+    mask_pass = config.alpha_mask and has_mask
+    blend_pass = config.translucency and has_translucent
 
     # record_function spans name the layers for torch.profiler
     # (tools/profile_frame.py); with no profiler running they cost a little
     # host time and no device work
     with record_function("frame.setup"):
-        setup = opaque_setup(scene, params, config)
-    if backend == "cuda":
+        setup = opaque_setup(scene, params, config, has_mask)
+        # (the blend draw list's setup/binning sits before the opaque
+        # raster, where a merged opaque+peel launch would consume it)
+        setup_t = blend_setup(scene, params, config) if blend_pass else None
+    prep = prep_t = None
+    if cuda:
         with record_function("frame.bin_pack"):
             prep = opaque_pairs(scene, setup, config)
-        overflow = overflow + prep.bins.n_overflow
-        tail_overflow = tail_overflow + prep.bins.n_tail
-        with record_function("frame.raster"):
-            g, attrs = rasterize(setup, fh, w, backend, prepared=prep)
-        frag = {"pos": attrs[..., 0:3], "normal": attrs[..., 3:6],
-                "uv": attrs[..., 6:8], "mat_id": g.mat_id,
-                "covered": g.tri_id >= 0}
-    else:
-        with record_function("frame.raster"):
-            g, _ = rasterize(setup, fh, w, backend)
-            frag = resolve_attributes(scene, vo, setup.coef, g, fh, w)
+            overflow = overflow + prep.bins.n_overflow
+            tail_overflow = tail_overflow + prep.bins.n_tail
+            if blend_pass:
+                prep_t = blend_pairs(scene, setup_t, config)
+                blend_overflow = blend_overflow + prep_t.bins.n_overflow
+                tail_overflow = tail_overflow + prep_t.bins.n_tail
+    with record_function("frame.raster"):
+        g, attrs = rasterize(setup, fh, w, backend, prepared=prep)
+        frag = (kernel_frag(g, attrs) if attrs is not None else
+                resolve_attributes(scene, vo, setup.coef, g, fh, w))
+    covered = g.tri_id >= 0
     with record_function("frame.shade"):
-        rgba = shade(frag)
+        rgba = shade(frag, covered)
+    depth_eff = g.depth
+
+    # alpha-MASK cutoff pass (beyond the reference's live path, which draws
+    # MASK opaque): glTF semantics say discard fragments with sampled alpha
+    # < material.alphaCutoff. Discarding under a z-buffer means the surface
+    # BEHIND shows through, so the (small) MASK draw list is depth-peeled
+    # front-to-back and the nearest PASSING fragment per pixel kept;
+    # stacked discarded layers beyond config.mask_layers fall back to the
+    # opaque surface. Shadows still treat MASK as opaque casters (parity).
+    if mask_pass:
+        with record_function("frame.mask"):
+            setup_m = _list_setup(scene, params, config, "corner_attr_mask",
+                                  "n_mask", config.cull_mode)
+            mask_budget = _pair_budget(setup_m.coef.shape[0],
+                                       config.raster.pairs_per_tri)
+            prep_m = None
+            if cuda:
+                prep_m = _list_pairs(scene, setup_m, config,
+                                     "corner_attr_mask", "mask_tri_material",
+                                     mask_budget)
+                overflow = overflow + prep_m.bins.n_overflow
+                tail_overflow = tail_overflow + prep_m.bins.n_tail
+            prev_m = torch.full((fh, w), -1.0, dtype=torch.float32,
+                                device=dev)
+            resolved = torch.zeros((fh, w), dtype=torch.bool, device=dev)
+            for _ in range(config.mask_layers):
+                gm, attrs_m = rasterize(setup_m, fh, w, backend,
+                                        peel_bounds=(prev_m, depth_eff),
+                                        prepared=prep_m,
+                                        max_pairs=mask_budget)
+                covered_m = gm.tri_id >= 0
+                frag_m = (kernel_frag(gm, attrs_m) if attrs_m is not None
+                          else resolve_attributes(
+                              scene, vo, setup_m.coef, gm, fh, w,
+                              tri_table="mask_tri_packed"))
+                rgba_m = shade(frag_m, covered_m)
+                cutoff = scene["mat_core"][frag_m["mat_id"].long(), 13]
+                accept = covered_m & (rgba_m[..., 3] >= cutoff) & ~resolved
+                rgba = torch.where(accept[..., None], rgba_m, rgba)
+                depth_eff = torch.where(accept, gm.depth, depth_eff)
+                resolved = resolved | accept
+                prev_m = torch.where(covered_m, gm.depth, 2.0)
+            covered = covered | resolved
+
+    # skybox where nothing was drawn (reference draws it last at far depth).
+    # Reference quirk kept: the cubemap is a Unorm format sampled raw
+    # (skybox.frag:30), so its stored (sRGB-encoded) values pass through as
+    # if linear and get re-encoded by the swapchain.
+    if config.skybox:
+        with record_function("frame.sky"):
+            sky_fn = (skybox.render_skybox_halfres if config.sky_halfres
+                      else skybox.render_skybox)
+            sky = sky_fn(scene["cubemap"], params["inv_vp_rot"], fh, w)
+            rgb = torch.where(covered[..., None], rgba[..., :3],
+                              sky[..., :3])
+    else:
+        rgb = torch.where(covered[..., None], rgba[..., :3], 0.0)
+
+    # translucent pass: depth-peeled K nearest layers, composited
+    # back-to-front with src-alpha blending — the order-correct version of
+    # the reference's per-mesh back-to-front sorted draws with culling off
+    # (RenderScene.cpp:127-159, GraphicsPipelineCache.cpp:307).
+    if blend_pass:
+        th, tw = config.raster.tile_h, config.raster.tile_w
+        ntx_b = -(-w // tw)
+        nty_b = -(-fh // th)
+        n_tiles = nty_b * ntx_b
+        shared_budget = max(1, int(n_tiles
+                                   * config.translucency_tile_fraction))
+        layer_budgets = config.blend_layer_tile_budgets
+
+        def resolve_and_shade(fr):
+            # resolve + shade, on the compacted pseudo-image when sparse
+            if "attrs" in fr:
+                fsub = {"pos": fr["attrs"][..., 0:3],
+                        "normal": fr["attrs"][..., 3:6],
+                        "uv": fr["attrs"][..., 6:8], "mat_id": fr["mat_id"]}
+            else:
+                gsub = rref.GBuffer(depth=None, tri_id=fr["tri_id"],
+                                    bary=fr["bary"])
+                fsub = resolve_attributes(scene, vo, setup_t.coef, gsub,
+                                          *fr["tri_id"].shape,
+                                          tri_table="blend_tri_packed")
+            return shade(fsub, fr["covered"])
+
+        active = (config.blend_tile_budget or None) if cuda else None
+        if active:
+            # sparse peel grid correctness guard: covered tiles beyond the
+            # static budget would render empty
+            blend_overflow = blend_overflow + (
+                (prep_t.bins.counts > 0).sum() - active).clamp_min(0)
+        # cuda: successive peel layers raster PAIRWISE in one launch (the
+        # dual two-nearest kernel): each launch pays the full per-tile
+        # walk, so halving launches halves that cost
+        prev = torch.full((fh, w), -1.0, dtype=torch.float32, device=dev)
+        raster_layers = []
+        li = 0
+        with record_function("frame.peel_raster"):
+            while li < config.translucency_layers:
+                dual = cuda and li + 1 < config.translucency_layers
+                out = rasterize(setup_t, fh, w, backend,
+                                peel_bounds=(prev, depth_eff),
+                                prepared=prep_t, active_tiles=active,
+                                peel_layers=2 if dual else 1)
+                new = out if dual else [out]
+                raster_layers.extend(new)
+                li += len(new)
+                g_last = new[-1][0]
+                prev = torch.where(g_last.tri_id >= 0, g_last.depth, 2.0)
+        layers = []
+        with record_function("frame.peel_shade"):
+            for li, (gt, attrs_t) in enumerate(raster_layers):
+                budget = (layer_budgets[li] if li < len(layer_budgets)
+                          else shared_budget)
+                budget = max(1, min(int(budget), n_tiles))
+                covered_t = gt.tri_id >= 0
+                sp_in = {"covered": covered_t, "tri_id": gt.tri_id}
+                if attrs_t is not None:
+                    sp_in["attrs"] = attrs_t
+                    sp_in["mat_id"] = gt.mat_id
+                elif gt.bary is not None:
+                    sp_in["bary"] = gt.bary
+                else:  # reference backend: recompute bary densely
+                    bary_t, _ = rref.barycentrics_at(setup_t.coef, gt.tri_id,
+                                                     fh, w)
+                    sp_in["bary"] = bary_t[..., :2]
+                if budget >= n_tiles:
+                    # full-coverage layer (e.g. a screen-filling banner):
+                    # the sparse tilefy/top-k/gather/scatter is pure
+                    # overhead
+                    rgba_t = resolve_and_shade(sp_in)
+                else:
+                    rgba_t = shade_sparse(resolve_and_shade, sp_in, fh, w,
+                                          th, tw, max_tiles=budget,
+                                          full_height=fh)
+                # observed need per layer in BUDGET-equivalent units
+                # (budget >= need <=> the per-row k covers the busiest tile
+                # row, mirroring shade_sparse's conversion); beyond-k tiles
+                # went unshaded => fold into the overflow counter
+                ct = torch.nn.functional.pad(
+                    covered_t, (0, ntx_b * tw - w, 0, nty_b * th - fh))
+                ct = ct.reshape(nty_b, th, ntx_b, tw)
+                row_need = ct.any(3).any(1).sum(-1)              # [nty]
+                shade_tile_counts.append(row_need.max() * nty_b)
+                if budget < n_tiles:
+                    k_row = max(1, min(-(-budget // nty_b), ntx_b))
+                    blend_overflow = blend_overflow + (
+                        row_need - k_row).clamp_min(0).sum()
+                layers.append((covered_t, rgba_t))
+            for covered_t, rgba_t in reversed(layers):
+                a = rgba_t[..., 3].clamp(0.0, 1.0) * covered_t
+                rgb = rgb * (1.0 - a[..., None]) \
+                    + rgba_t[..., :3] * a[..., None]
+
     with record_function("frame.encode"):
-        rgb = torch.where(frag["covered"][..., None], rgba[..., :3], 0.0)
+        if config.ssaa > 1:
+            f = config.ssaa
+            rgb = rgb.reshape(fh // f, f, config.width, f, 3).mean(dim=(1, 3))
         img = encode_srgb8(rgb)
-    return img, {"pair_overflow": overflow,
-                 "pair_tail_overflow": tail_overflow}
+    stats = {"pair_overflow": overflow,
+             "pair_tail_overflow": tail_overflow,
+             "blend_pair_overflow": blend_overflow}
+    if shade_tile_counts:
+        stats["blend_shade_tiles"] = torch.stack(shade_tile_counts)
+    if shadow_stats:
+        stats["penumbra_tiles"] = torch.stack(
+            [s[0] for s in shadow_stats]).max()
+        stats["penumbra_overflow"] = torch.stack(
+            [s[1] for s in shadow_stats]).sum()
+    return img, stats
 
 
 class FrameRenderer:
@@ -236,12 +623,18 @@ class FrameRenderer:
 
     The analog of Renderer+RenderScene's per-frame path
     (``Renderer.cpp:98-111``): per-frame host->device traffic is ONE
-    packed uniform vector. ``device`` defaults to ``cuda`` (and raises
-    without it); ``backend`` defaults to ``"cuda"``, the tile kernel (its
-    plain PyTorch version on a CPU device)."""
+    packed uniform vector; the shadow depth pass is cached until
+    ``mark_shadows_dirty()`` (reference dirty-flag semantics). ``device``
+    defaults to ``cuda`` (and raises without it); ``backend`` defaults to
+    ``"cuda"``, the tile kernel (its plain PyTorch version on a CPU
+    device)."""
 
-    # growth ceiling of the pair budget (the packed table is P x 176 B)
+    # growth ceiling of the pair budgets (a packed table is P x 176 B)
     _MAX_PAIRS = 2_000_000
+    # ... and of one shadow map's: its depth-only rows are P x 80 B, and a
+    # 4096^2 map is one launch here where the JAX package caps each of its
+    # 8 row slices at _MAX_PAIRS
+    _MAX_SHADOW_PAIRS = 16_000_000
 
     def __init__(self, scene_host, config: RenderConfig, device=None,
                  backend: str | None = None):
@@ -253,16 +646,61 @@ class FrameRenderer:
         self.backend = backend
         self.scene_host = scene_host
         self.config = config
+        self.n_shadows = scene_host.n_shadow_maps if config.shadows else 0
         dev_np = scene_host.upload()
         self.scene_dev = scene_to_device(dev_np, self.device)
         self._slots_used = tuple(bool((dev_np[k] >= 0).any()) for k in
                                  ("mat_tex_base", "mat_tex_emissive",
                                   "mat_tex_orm", "mat_tex_normal"))
-        if backend == "cuda" and config.raster.auto_tune_pairs:
+        self._has_translucent = int(dev_np["n_blend"]) > 0
+        self._has_mask = int(dev_np.get("n_mask", 0)) > 0
+        self._shadow_lights = _static_shadow_lights(dev_np)
+        # the budgets below are sized at init from the initial camera;
+        # every one has an overflow counter in the frame's stats
+        tune = backend == "cuda" and config.raster.auto_tune_pairs
+        self._react_overflow = tune
+        if tune:
             ppt, abs_budget, dense_k = self._estimate_pair_budget()
-            self.config = config.replace(raster=dataclasses.replace(
+            self.config = config = config.replace(raster=dataclasses.replace(
                 config.raster, pairs_per_tri=ppt, pair_budget=abs_budget,
                 dense_k=dense_k))
+        if tune and self._has_translucent and config.translucency:
+            frac, blend_budget, tile_budget = self._estimate_blend_budgets()
+            self.config = config = config.replace(
+                translucency_tile_fraction=min(
+                    config.translucency_tile_fraction, frac),
+                blend_pair_budget=blend_budget,
+                blend_tile_budget=tile_budget)
+        # two-stage PCF pays once the window table dwarfs the coarse one:
+        # 35% of the shade tiles
+        if (tune and self.n_shadows > 0 and config.shadow_extent >= 1024
+                and config.penumbra_tile_budget == 0):
+            self.config = config = config.replace(
+                penumbra_tile_budget=max(
+                    256, self._shade_tile_total() * 35 // 100))
+        # the shadow pass keeps its own pair budget: its tile spans differ
+        # wildly from the camera view's (an ortho fit of the whole scene)
+        if tune and self.n_shadows > 0:
+            self._shadow_budget_val = self._estimate_shadow_budget()
+        else:
+            self._shadow_budget_val = _pair_budget(
+                int(dev_np["tri_vidx"].shape[0]), config.raster.pairs_per_tri)
+        self._shadow_maps = None
+        self._shadows_dirty = True
+        self._shadow_vp_cache = None
+        self.shadow_overflow = 0    # dropped pairs of the last shadow pass
+        self._last_stats = None     # the previous frame's counters
+
+    def _shade_tile_total(self) -> int:
+        h, w = self.config.render_extent()
+        return ((-(-h // self.config.raster.tile_h))
+                * (-(-w // self.config.raster.tile_w)))
+
+    def _init_camera(self):
+        vp = ViewProperties.from_camera(self.scene_host.camera)
+        view = torch.from_numpy(np.asarray(vp.view, np.float32)).to(self.device)
+        proj = torch.from_numpy(np.asarray(vp.proj, np.float32)).to(self.device)
+        return view, proj
 
     def _estimate_pair_budget(self) -> tuple[int, int, int]:
         """Size the pair-table budget from the initial camera: the
@@ -270,12 +708,9 @@ class FrameRenderer:
         from the span distribution (the JAX package's estimator)."""
         cfg = self.config
         h, w = cfg.render_extent()
-        eth, etw = cuda_raster.TILE_H, cuda_raster.TILE_W
-        vp = ViewProperties.from_camera(self.scene_host.camera)
+        eth, etw = _effective_tiles(cfg.raster, self.backend)
         sc = self.scene_dev
-        view = torch.from_numpy(np.asarray(vp.view, np.float32)).to(self.device)
-        proj = torch.from_numpy(np.asarray(vp.proj, np.float32)).to(self.device)
-        vo = cached_vertex_outputs(sc, view, proj)
+        vo = cached_vertex_outputs(sc, *self._init_camera())
         s = triangle_setup(vo.clip, sc["tri_vidx"], sc["n_opaque"], w, h,
                            cfg.cull_mode)
         total = int(binning.live_pairs_estimate(s, h, w, eth, etw,
@@ -292,26 +727,214 @@ class FrameRenderer:
         dense_k = max(4, dk) if dk <= 16 else 0
         return ppt, abs_budget, dense_k
 
+    def _estimate_shadow_budget(self) -> int:
+        """Measure the (tile, triangle) spans each shadow view produces at
+        the shadow extent (setup + span sum, no sort) and keep 1.3x
+        headroom — the light fit tracks the scene, not the camera, so the
+        count is stable across frames. The budget is one map's: the worst
+        span count over all maps."""
+        e = self.config.shadow_extent
+        eth, etw = _effective_tiles(self.config.raster, self.backend)
+        sc = self.scene_dev
+        svp = fitting.shadow_transforms_for_scene(self.scene_host)
+        worst = 0
+        for m in np.asarray(svp, np.float32):
+            clip = clip_coords(sc["world_pos"],
+                               torch.from_numpy(m).to(self.device))
+            s = triangle_setup(clip, sc["tri_vidx"], sc["n_tris"], e, e,
+                               CullMode.FRONT)
+            worst = max(worst, int(binning._tile_spans(s, eth, etw)[4].sum()))
+        budget = int(1.3 * worst) + 8192
+        if budget > self._MAX_SHADOW_PAIRS:
+            _log.warning(
+                "shadow span estimate %d exceeds the pair-table cap %d; "
+                "shadow maps may drop geometry (overflow is counted)",
+                budget, self._MAX_SHADOW_PAIRS)
+        return min(self._MAX_SHADOW_PAIRS, budget)
+
+    def _estimate_blend_budgets(self) -> tuple[float, int, int]:
+        """Size the translucency budgets from the initial camera: the
+        translucent draw list is usually few LARGE triangles covering a
+        small screen fraction (hanging banners, glass), so neither the
+        full-screen sparse-shading default nor the opaque per-tri pair
+        budget fit its span profile. Returns (shade tile fraction, raster
+        pair budget, raster covered-tile budget), each with headroom; the
+        overflow counters cover camera moves past them."""
+        cfg = self.config
+        h, w = cfg.render_extent()
+        n_tiles = self._shade_tile_total()
+        eth, etw = _effective_tiles(cfg.raster, self.backend)
+        nte = (-(-h // eth)) * (-(-w // etw))
+        sc = self.scene_dev
+        vo = cached_vertex_outputs(sc, *self._init_camera())
+        s = triangle_setup(vo.clip, sc["blend_tri_vidx"], sc["n_blend"], w,
+                           h, CullMode.NONE)
+        shade_spans = int(binning._tile_spans(
+            s, cfg.raster.tile_h, cfg.raster.tile_w)[4].sum())
+        pair_spans = int(binning._tile_spans(s, eth, etw)[4].sum())
+        pair_budget = max(3 * pair_spans // 2, 4096)
+        # two-phase: spans sized the bin budget; now count EXACT covered
+        # tiles at the kernel tile size (the sparse peel grid runs only
+        # covered tiles)
+        b = binning.bin_triangles(s, h, w, eth, etw, pair_budget)
+        n_active = int((b.counts > 0).sum())
+        tiles = min(max(2 * shade_spans, 16), n_tiles)
+        tile_budget = min(max(2 * n_active, 256), nte)
+        return tiles / n_tiles, pair_budget, tile_budget
+
+    def mark_shadows_dirty(self) -> None:
+        """Re-render shadow depth next frame (scene or light changed)."""
+        self._shadows_dirty = True
+        self._shadow_vp_cache = None   # refit to the CURRENT camera/scene
+
     def params_for_camera(self, view_props: ViewProperties | None = None):
         vp = view_props or ViewProperties.from_camera(self.scene_host.camera)
         params = vp.as_arrays()
         params["inv_vp_rot"] = skybox.skybox_ray_matrix(vp.view, vp.proj)
         params["inv_vp"] = grid_mod.grid_unproject_matrix(vp.view, vp.proj)
+        if self.n_shadows > 0:
+            # fit ONCE per dirty-flag cycle and cache. Deliberate
+            # divergence: the reference refits per frame
+            # (RenderScene.cpp:163-164 -> ShadowSystem::Update) while
+            # rendering depth only on the dirty flag — i.e. it samples
+            # REFIT coordinates against depths rendered with the old fit.
+            # Caching the fit with the maps keeps sampling consistent.
+            if self._shadows_dirty or self._shadow_vp_cache is None:
+                self._shadow_vp_cache = \
+                    fitting.shadow_transforms_for_scene(self.scene_host)
+            params["shadow_viewproj"] = self._shadow_vp_cache
         return params
 
     def uniform_for_camera(self, view_props: ViewProperties | None = None):
-        return uniforms.pack_params(self.params_for_camera(view_props), 0)
+        return uniforms.pack_params(self.params_for_camera(view_props),
+                                    self.n_shadows)
+
+    def _render_shadows(self, u) -> None:
+        """The cached shadow pass: a blocking overflow check + regrow here
+        is a one-off, not a per-frame stall."""
+        for _ in range(4):
+            maps, sov = render_shadow_pass(
+                self.scene_dev, u, self.config, self.n_shadows, self.backend,
+                max_pairs=self._shadow_budget_val, return_overflow=True)
+            sov = int(sov)
+            if (not self._react_overflow or sov == 0
+                    or self._shadow_budget_val >= self._MAX_SHADOW_PAIRS):
+                break
+            self._shadow_budget_val = min(self._MAX_SHADOW_PAIRS,
+                                          self._shadow_budget_val * 2)
+            _log.warning("shadow pair budget overflow (%d dropped): budget "
+                         "-> %d, re-rendering", sov, self._shadow_budget_val)
+        self._shadow_maps = maps
+        self.shadow_overflow = sov
+        self._shadows_dirty = False
+
+    def _grow_budgets(self, st: dict) -> None:
+        """React to the previous frame's overflow counters: grow every
+        budget that overflowed (the JAX package's growth rules), so a
+        camera move into a denser view costs one frame with dropped
+        geometry or estimated penumbra instead of every frame after it.
+        Budgets only grow here; the shrinking re-tunes from observed
+        coverage are not ported yet."""
+        keys = [k for k in ("pair_overflow", "pair_tail_overflow",
+                            "blend_pair_overflow", "penumbra_overflow",
+                            "penumbra_tiles") if k in st]
+        # one device read for all counters
+        val = dict(zip(keys, torch.stack(
+            [st[k].to(torch.int64) for k in keys]).tolist()))
+        if not any(val[k] for k in keys if k != "penumbra_tiles"):
+            return
+        cfg = self.config
+        rc = cfg.raster
+        t = int(self.scene_dev["tri_vidx"].shape[0])
+        ov = val["pair_overflow"]
+        if val["pair_tail_overflow"] > 0 and rc.dense_k:
+            # span>dense_k triangles overflowed the dense binning's
+            # big-list cap: budget growth can never fix these, so grow K;
+            # past 16 fall back to the capless fill path
+            nk = rc.dense_k + max(2, rc.dense_k // 2)
+            nk = nk if nk <= 16 else 0
+            _log.warning("dense binning big-cap overflow (%d dropped): "
+                         "dense_k %d -> %s", val["pair_tail_overflow"],
+                         rc.dense_k, nk or "fill path")
+            rc = dataclasses.replace(rc, dense_k=nk)
+        if ov > 0 and 0 < rc.pair_budget < self._MAX_PAIRS:
+            # the overflow count is exact (live = budget + dropped): grow
+            # straight to the observed need plus 15% headroom
+            need = rc.pair_budget + ov
+            nb = min(self._MAX_PAIRS, max(need + need // 7 + 8192,
+                                          rc.pair_budget + 8192))
+            _log.warning("pair budget overflow (%d dropped): budget %d -> "
+                         "%d", ov, rc.pair_budget, nb)
+            rc = dataclasses.replace(rc, pair_budget=nb)
+        elif (ov > 0 and rc.pairs_per_tri < 64
+                and rc.pairs_per_tri * t < self._MAX_PAIRS):
+            new_ppt = min(64, rc.pairs_per_tri + max(1, rc.pairs_per_tri // 2))
+            _log.warning("pair budget overflow (%d dropped): pairs_per_tri "
+                         "%d -> %d", ov, rc.pairs_per_tri, new_ppt)
+            rc = dataclasses.replace(rc, pairs_per_tri=new_ppt)
+        if rc is not cfg.raster:
+            cfg = cfg.replace(raster=rc)
+        if val["blend_pair_overflow"] > 0:
+            # the counter folds pair, sparse-grid tile AND sparse-shade
+            # tile overflow; grow every budget that exists
+            changed = {}
+            if 0 < cfg.blend_pair_budget < self._MAX_PAIRS:
+                changed["blend_pair_budget"] = cfg.blend_pair_budget * 2
+            if cfg.blend_tile_budget:
+                changed["blend_tile_budget"] = min(
+                    2 * cfg.blend_tile_budget, self._MAX_PAIRS)
+            if cfg.translucency_tile_fraction < 1.0:
+                changed["translucency_tile_fraction"] = min(
+                    1.0, 2.0 * cfg.translucency_tile_fraction)
+            if cfg.blend_layer_tile_budgets:
+                total = self._shade_tile_total()
+                obs = st["blend_shade_tiles"].tolist()
+                changed["blend_layer_tile_budgets"] = tuple(
+                    min(total, max(2 * b, 2 * int(o)))
+                    for b, o in zip(cfg.blend_layer_tile_budgets, obs))
+            if changed:
+                _log.warning("blend budget overflow (%d dropped): growing "
+                             "%s", val["blend_pair_overflow"],
+                             sorted(changed))
+                cfg = cfg.replace(**changed)
+        if val.get("penumbra_overflow", 0) > 0 and cfg.penumbra_tile_budget:
+            # over-budget penumbra segments rendered the fully-shadowed
+            # estimate this frame: jump to 1.5x the observed count
+            obs = val["penumbra_tiles"]
+            nb = min(self._shade_tile_total(),
+                     max(2 * cfg.penumbra_tile_budget, obs + obs // 2))
+            if nb > cfg.penumbra_tile_budget:
+                _log.warning("penumbra tile budget overflow (%d over): %d "
+                             "-> %d", val["penumbra_overflow"],
+                             cfg.penumbra_tile_budget, nb)
+                cfg = cfg.replace(penumbra_tile_budget=nb)
+        self.config = cfg
 
     def render(self, view_props: ViewProperties | None = None):
         """Render one frame: returns (image [H,W,4] uint8 on the device,
-        stats dict of 0-d tensors ``pair_overflow``/``pair_tail_overflow``).
-        Work is queued on the device; ``.cpu()`` fetches the image."""
+        stats dict of 0-d tensors, see ``render_frame``). Work is queued
+        on the device; ``.cpu()`` fetches the image. The first frame, and
+        the first after ``mark_shadows_dirty()``, also renders the shadow
+        maps. With ``auto_tune_pairs`` the call first reads the previous
+        frame's overflow counters (a blocking device read) and grows the
+        budgets that overflowed."""
+        if self._react_overflow and self._last_stats is not None:
+            self._grow_budgets(self._last_stats)
         u = torch.from_numpy(self.uniform_for_camera(view_props)).to(
             self.device)
-        return render_frame(self.scene_dev, u, self.config, self.backend,
-                            self._slots_used)
+        if self.n_shadows > 0 and self._shadows_dirty:
+            self._render_shadows(u)
+        img, stats = render_frame(
+            self.scene_dev, u, self._shadow_maps, self.config,
+            self.n_shadows, self.backend, self._has_translucent,
+            self._slots_used, shadow_lights=self._shadow_lights,
+            has_mask=self._has_mask)
+        self._last_stats = stats
+        return img, stats
 
 
-__all__ = ["FrameRenderer", "render_frame", "scene_to_device", "rasterize",
-           "resolve_attributes", "cached_vertex_outputs", "check_config",
+__all__ = ["FrameRenderer", "render_frame", "render_shadow_pass",
+           "render_shadow_maps", "scene_to_device", "rasterize",
+           "shade_sparse", "resolve_attributes", "cached_vertex_outputs",
+           "check_config",
            "RasterConfig", "RenderConfig"]

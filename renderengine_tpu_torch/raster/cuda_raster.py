@@ -2,7 +2,8 @@
 (``csrc/raster_tile.cu``) and its plain PyTorch version.
 
 Port of ``renderengine_tpu/raster/pallas_raster.py`` (``rasterize_pallas``
-and ``_raster_kernel``, dense grid, single winner). Per-tile triangle
+and ``_raster_kernel``: single winner or the two nearest layers, per-pixel
+peel bounds, dense or sparse tile grid, row slices). Per-tile triangle
 lists come from ``binning.bin_triangles``; the pair data is laid out
 outside the kernel (one row gather) as
 
@@ -26,6 +27,7 @@ tensor it launches the kernel or raises — there is no fallback.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -53,8 +55,10 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "raster_tile.cu"
 BUILD_DIR = _PKG / "build"
 
-# launches of the K1 kernel (plain-version runs do not count)
+# launches of the K1 kernel (plain-version runs do not count): the total,
+# and the same launches by variant (n_attrs, peel, dual)
 launch_counts = {"raster_tile": 0}
+variant_counts: collections.Counter = collections.Counter()
 
 _lib = None
 
@@ -164,32 +168,75 @@ def _library():
         lib = ctypes.CDLL(str(build()))
         lib.raster_tile_launch.restype = ctypes.c_int
         lib.raster_tile_launch.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         _lib = lib
     return _lib
 
 
-def _n_planes(n_attrs: int) -> int:
-    return 3 + (n_attrs if n_attrs else 2)
+def _n_planes(n_attrs: int, dual: bool = False) -> int:
+    """Output planes per tile: depth | tri | mat | 2 bary or n_attrs
+    attribute values, once per layer."""
+    return (3 + (n_attrs if n_attrs else 2)) * (2 if dual else 1)
+
+
+def _tile_bounds(peel_bounds, height: int, width: int, nty: int,
+                 ntx: int) -> torch.Tensor:
+    """(prev [H,W], zmax [H,W]) -> [n_tiles, 2, 256] f32 rows in tile
+    order. Pixels of a partial tile that lie outside the image get
+    prev = 2.0 and zmax = -1.0, so nothing there passes the peel test."""
+    prev, zmax = peel_bounds
+    ph = nty * TILE_H - height
+    pw = ntx * TILE_W - width
+
+    def tile(a, fill):
+        a = torch.nn.functional.pad(a.to(torch.float32), (0, pw, 0, ph),
+                                    value=fill)
+        a = a.reshape(nty, TILE_H, ntx, TILE_W).permute(0, 2, 1, 3)
+        return a.reshape(nty * ntx, TILE_H * TILE_W)
+
+    return torch.stack([tile(prev, 2.0), tile(zmax, -1.0)], dim=1).contiguous()
+
+
+def sparse_tile_map(counts: torch.Tensor, active_tiles: int) -> torch.Tensor:
+    """The ``active_tiles`` tiles with the most pairs, in ascending tile
+    order (int32). Ties go to the lowest tile index, as ``jax.lax.top_k``
+    breaks them: a stable descending sort, not ``torch.topk``."""
+    sel = torch.sort(counts, descending=True, stable=True).indices
+    return torch.sort(sel[:active_tiles]).values.to(torch.int32)
 
 
 def raster_tiles(pair_data: torch.Tensor, starts: torch.Tensor,
                  counts: torch.Tensor, ntx: int, width: int,
-                 full_height: int, y0: int = 0,
-                 n_attrs: int = 0) -> torch.Tensor:
-    """Run K1 over every tile: -> [n_tiles, 3 + n_num, 256] f32 planes
-    (depth | tri | mat | 2 bary or n_attrs attribute values). CPU tensors
-    take the plain version; CUDA tensors launch the kernel."""
+                 full_height: int, y0: int = 0, n_attrs: int = 0,
+                 bounds: torch.Tensor | None = None,
+                 tile_map: torch.Tensor | None = None,
+                 dual: bool = False) -> torch.Tensor:
+    """Run K1: -> [n_sel, n_planes, 256] f32 planes (depth | tri | mat |
+    2 bary or n_attrs attribute values; with ``dual`` the second layer's
+    planes follow the first's).
+
+    ``bounds``: [n_tiles, 2, 256] per-pixel (prev, zmax) rows from
+    ``_tile_bounds`` — peel mode: only fragments with prev < depth <= zmax
+    count. ``tile_map``: [n_sel] int32 tile ids — the sparse grid: slot s
+    of the output holds tile ``tile_map[s]``; without it every tile runs
+    in order. ``dual`` (needs ``bounds``): the two nearest layers in one
+    walk. CPU tensors take the plain version; CUDA tensors launch the
+    kernel."""
+    if dual and bounds is None:
+        raise ValueError("dual (peel_layers=2) requires peel bounds")
     n_tiles = starts.shape[0]
     if pair_data.device.type == "cpu":
         return _raster_tiles_plain(pair_data, starts, counts, ntx, width,
-                                   full_height, y0, n_attrs)
+                                   full_height, y0, n_attrs, bounds,
+                                   tile_map, dual)
     if n_attrs not in (0, 8):
         raise ValueError(f"K1 is built for n_attrs 0 or 8, not {n_attrs}")
     dev = pair_data.device
-    if dev.type != "cuda" or starts.device != dev or counts.device != dev:
-        raise ValueError("pair_data, starts and counts must share a CUDA "
-                         "device")
+    extra = [t for t in (bounds, tile_map) if t is not None]
+    if dev.type != "cuda" or any(t.device != dev
+                                 for t in [starts, counts] + extra):
+        raise ValueError("pair_data, starts, counts, bounds and tile_map "
+                         "must share a CUDA device")
     if pair_data.dtype != torch.float32 or starts.dtype != torch.int32 \
             or counts.dtype != torch.int32:
         raise TypeError("pair_data must be float32, starts/counts int32")
@@ -197,58 +244,92 @@ def raster_tiles(pair_data: torch.Tensor, starts: torch.Tensor,
         raise ValueError(f"pair_data must be [P, {_cols_per_pair(n_attrs)}]")
     if counts.shape != starts.shape or starts.dim() != 1:
         raise ValueError("starts and counts must be [n_tiles]")
-    if not (pair_data.is_contiguous() and starts.is_contiguous()
-            and counts.is_contiguous()):
+    if bounds is not None:
+        if bounds.dtype != torch.float32:
+            raise TypeError("bounds must be float32")
+        if bounds.shape != (n_tiles, 2, TILE_H * TILE_W):
+            raise ValueError("bounds must be [n_tiles, 2, 256]")
+    if tile_map is not None:
+        if tile_map.dtype != torch.int32:
+            raise TypeError("tile_map must be int32")
+        if tile_map.dim() != 1:
+            raise ValueError("tile_map must be [n_sel]")
+    if not all(t.is_contiguous()
+               for t in [pair_data, starts, counts] + extra):
         raise ValueError("K1 inputs must be contiguous")
-    out = torch.empty((n_tiles, _n_planes(n_attrs), TILE_H * TILE_W),
+    n_sel = n_tiles if tile_map is None else tile_map.shape[0]
+    out = torch.empty((n_sel, _n_planes(n_attrs, dual), TILE_H * TILE_W),
                       dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _library().raster_tile_launch(
             pair_data.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-            out.data_ptr(), n_tiles, ntx, width, full_height, y0, n_attrs,
-            stream)
+            None if tile_map is None else tile_map.data_ptr(),
+            None if bounds is None else bounds.data_ptr(),
+            out.data_ptr(), n_sel, ntx, width, full_height, y0, n_attrs,
+            int(dual), stream)
     if rc != 0:
         raise RuntimeError(f"raster_tile launch failed: CUDA error {rc}")
     launch_counts["raster_tile"] += 1
+    variant_counts[(n_attrs, bounds is not None, dual)] += 1
     return out
 
 
 def _raster_tiles_plain(pair_data, starts, counts, ntx: int, width: int,
                         full_height: int, y0: int = 0,
-                        n_attrs: int = 0,
+                        n_attrs: int = 0, bounds=None, tile_map=None,
+                        dual: bool = False,
                         stats: dict | None = None) -> torch.Tensor:
     """K1 in plain torch ops with the kernel's op order: each tile walks
-    its pairs in ascending order with a strict depth test. Step i updates
+    its pairs in ascending order with strict depth tests. Step i updates
     the tiles holding more than i pairs; tiles are kept in descending-count
-    order so those are always a prefix. If ``stats`` is given, its
-    ``"wins"`` is set to the number of (pair, pixel) depth wins: the
-    fragments for which the kernel does its per-winner work."""
+    order so those are always a prefix. Same arguments and result as
+    ``raster_tiles``. If ``stats`` is given, its ``"wins"`` is set to the
+    number of (pair, pixel) fragments that entered a layer (the fragments
+    for which the kernel does its per-winner work) and its ``"demotes"``
+    to those of them that entered layer 1 of a ``dual`` walk, pushing the
+    old layer 1 down."""
+    if dual and bounds is None:
+        raise ValueError("dual (peel_layers=2) requires peel bounds")
     dev = pair_data.device
-    n_tiles = starts.shape[0]
     n_num = n_attrs if n_attrs else 2
     npx = TILE_H * TILE_W
     lane = torch.arange(npx, device=dev)
-    order = torch.sort(counts, descending=True, stable=True).indices
-    tiles = order.to(torch.int64)
+    if tile_map is None:
+        sel = torch.arange(starts.shape[0], device=dev)
+    else:
+        sel = tile_map.to(torch.int64)
+    n_sel = sel.shape[0]
+    cnt = counts[sel]
+    order = torch.sort(cnt, descending=True, stable=True).indices
+    tiles = sel[order]
     org_x = (tiles % ntx) * TILE_W
     org_y = (tiles // ntx) * TILE_H + y0
     px = (org_x[:, None] + lane % TILE_W).to(torch.float32) \
         + (0.5 - width * 0.5)
     py = (org_y[:, None] + lane // TILE_W).to(torch.float32) \
         + (0.5 - full_height * 0.5)
-    st = starts[order].to(torch.int64)
-    active = torch.bincount(counts.to(torch.int64).cpu(),
+    st = starts[tiles].to(torch.int64)
+    active = torch.bincount(cnt.to(torch.int64).cpu(),
                             minlength=1).flip(0).cumsum(0).flip(0)
     # active[i] = tiles with count >= i; step i runs tiles with count > i
     max_count = active.shape[0] - 1
+    if bounds is not None:
+        prev_b = bounds[tiles, 0]
+        zmax_b = bounds[tiles, 1]
 
-    best = torch.ones((n_tiles, npx), dtype=torch.float32, device=dev)
-    tri = torch.full((n_tiles, npx), -1.0, dtype=torch.float32, device=dev)
-    mat = torch.zeros((n_tiles, npx), dtype=torch.float32, device=dev)
-    esum_w = torch.zeros((n_tiles, npx), dtype=torch.float32, device=dev)
-    num = torch.zeros((n_num, n_tiles, npx), dtype=torch.float32, device=dev)
+    def clear_layer():
+        f = dict(dtype=torch.float32, device=dev)
+        return [torch.ones((n_sel, npx), **f),              # depth
+                torch.full((n_sel, npx), -1.0, **f),        # tri
+                torch.zeros((n_sel, npx), **f),             # mat
+                torch.zeros((n_sel, npx), **f)              # edge sum
+                ] + [torch.zeros((n_sel, npx), **f) for _ in range(n_num)]
+
+    l1 = clear_layer()
+    l2 = clear_layer() if dual else None
     wins = torch.zeros((), dtype=torch.int64, device=dev)
+    demotes = torch.zeros((), dtype=torch.int64, device=dev)
 
     for i in range(max_count):
         na = int(active[i + 1])
@@ -264,25 +345,40 @@ def _raster_tiles_plain(pair_data, starts, counts, ntx: int, width: int,
                              torch.minimum(e1 + r[:, 16:17], e2 + r[:, 17:18]))
         d = zn / wn
         cover = (emin > 0) & (wn > 0) & (zn >= 0) & (zn <= wn)
-        take = cover & (d < best[:na])
+        if bounds is not None:
+            cover = cover & (d > prev_b[:na]) & (d <= zmax_b[:na])
+        d1 = l1[0][:na]
+        take = cover & (d < d1)
+        frag = [d, r[:, TRI_COL:TRI_COL + 1], r[:, MAT_COL:MAT_COL + 1],
+                (e0 + e1) + e2]
+        frag += ([e0, e1] if n_attrs == 0 else
+                 [plane(ATTR0 + 3 * a) for a in range(n_attrs)])
+        if dual:
+            # the nearest fragment strictly behind layer 1; a new layer-1
+            # winner demotes the old one
+            take2 = cover & (d > d1) & (d < l2[0][:na])
+            for c2, c1, f in zip(l2, l1, frag):
+                c2[:na] = torch.where(take, c1[:na],
+                                      torch.where(take2, f, c2[:na]))
+            if stats is not None:
+                wins += take2.sum()
+                demotes += take.sum()
         if stats is not None:
             wins += take.sum()
-        best[:na] = torch.where(take, d, best[:na])
-        tri[:na] = torch.where(take, r[:, TRI_COL:TRI_COL + 1], tri[:na])
-        mat[:na] = torch.where(take, r[:, MAT_COL:MAT_COL + 1], mat[:na])
-        esum_w[:na] = torch.where(take, (e0 + e1) + e2, esum_w[:na])
-        nums = ([e0, e1] if n_attrs == 0 else
-                [plane(ATTR0 + 3 * a) for a in range(n_attrs)])
-        for a, nv in enumerate(nums):
-            num[a, :na] = torch.where(take, nv, num[a, :na])
+        for c1, f in zip(l1, frag):
+            c1[:na] = torch.where(take, f, c1[:na])
 
-    inv = 1.0 / torch.where(esum_w == 0, 1.0, esum_w)
-    planes = torch.stack([best, tri, mat] + [num[a] * inv
-                                             for a in range(n_num)], dim=1)
+    def finish(layer):
+        best, tri, mat, esum_w = layer[:4]
+        inv = 1.0 / torch.where(esum_w == 0, 1.0, esum_w)
+        return [best, tri, mat] + [nv * inv for nv in layer[4:]]
+
+    planes = torch.stack(finish(l1) + (finish(l2) if dual else []), dim=1)
     out = torch.empty_like(planes)
     out[order] = planes
     if stats is not None:
         stats["wins"] = int(wins)
+        stats["demotes"] = int(demotes)
     return out
 
 
@@ -290,10 +386,11 @@ def _raster_tiles_plain(pair_data, starts, counts, ntx: int, width: int,
 
 def rasterize_cuda(setup: TriSetup, height: int, width: int,
                    max_pairs: int | None = None, y0: int = 0,
-                   full_height: int | None = None,
+                   full_height: int | None = None, peel_bounds=None,
                    attr_planes=None, tri_mat=None,
                    prepared: PreparedPairs | None = None,
-                   dense_k: int | None = None):
+                   dense_k: int | None = None,
+                   active_tiles: int | None = None, peel_layers: int = 1):
     """Bin + pack + K1. Same G-buffer as ``rasterize_reference``.
 
     ``attr_planes``: optional [T,24] from ``attribute_planes`` — the kernel
@@ -302,29 +399,65 @@ def rasterize_cuda(setup: TriSetup, height: int, width: int,
     ``tri_mat``: optional [T] int material ids, returned as ``mat_id``.
     ``y0``/``full_height`` raster a row slice of a taller viewport.
     ``prepared``: a ``prepare_pairs`` result to reuse (skips binning and
-    packing; ``max_pairs``/``tri_mat`` are then ignored)."""
+    packing; ``max_pairs``/``tri_mat`` are then ignored).
+    ``peel_bounds``: optional (prev [H,W], zmax [H,W]) — keep only
+    fragments with prev < depth <= zmax (depth peeling).
+    ``active_tiles``: run a sparse grid over only the K tiles with the most
+    pairs; tiles beyond K render empty, and callers guard with the
+    covered-tile count.
+    ``peel_layers=2`` (requires ``peel_bounds``) extracts the two nearest
+    layers in one walk and returns a list of two per-layer results, each
+    (GBuffer, attrs-or-None)."""
+    if peel_layers not in (1, 2):
+        raise ValueError("peel_layers must be 1 or 2")
+    dual = peel_layers == 2
+    if dual and peel_bounds is None:
+        raise ValueError("peel_layers=2 requires peel_bounds")
     fh = height if full_height is None else full_height
     ntx = -(-width // TILE_W)
     nty = -(-height // TILE_H)
+    n_tiles = ntx * nty
     if prepared is None:
         prepared = prepare_pairs(setup, height, width, max_pairs,
                                  attr_planes, tri_mat, dense_k)
     bins = prepared.bins
     n_attrs = prepared.n_attrs
+    bounds = (None if peel_bounds is None
+              else _tile_bounds(peel_bounds, height, width, nty, ntx))
+    sparse = active_tiles is not None and active_tiles < n_tiles
+    tile_map = sparse_tile_map(bins.counts, active_tiles) if sparse else None
     blk = raster_tiles(prepared.pair_data, bins.starts, bins.counts, ntx,
-                       width, fh, y0, n_attrs)
+                       width, fh, y0, n_attrs, bounds, tile_map, dual)
+    pp = _n_planes(n_attrs)                         # planes per layer
+    if sparse:
+        # slot blocks back into the full tile layout; untouched tiles read
+        # as empty (clear depth 1.0, no winner = tri -1) in every layer
+        fill = torch.zeros(blk.shape[1], dtype=torch.float32,
+                           device=blk.device)
+        fill[0::pp] = 1.0
+        fill[1::pp] = -1.0
+        full = fill[None, :, None].repeat(n_tiles, 1, blk.shape[2])
+        full[tile_map.long()] = blk
+        blk = full
 
     def untile(a):
         a = a.reshape(nty, ntx, TILE_H, TILE_W).permute(0, 2, 1, 3)
         return a.reshape(nty * TILE_H, ntx * TILE_W)[:height, :width]
 
-    tri_id = untile(blk[:, 1]).to(torch.int32)      # exact int-valued floats
-    mat_id = (torch.where(tri_id >= 0, untile(blk[:, 2]).to(torch.int32), 0)
-              if prepared.has_mat else None)
-    if n_attrs == 0:
-        bary = torch.stack([untile(blk[:, 3]), untile(blk[:, 4])], dim=-1)
-        return GBuffer(untile(blk[:, 0]), tri_id, bary, mat_id)
-    g = GBuffer(untile(blk[:, 0]), tri_id, None, mat_id)
-    attrs = torch.stack([untile(blk[:, 3 + a]) for a in range(n_attrs)],
-                        dim=-1)
-    return g, attrs
+    def unpack(lb):
+        tri_id = untile(lb[:, 1]).to(torch.int32)   # exact int-valued floats
+        mat_id = (torch.where(tri_id >= 0,
+                              untile(lb[:, 2]).to(torch.int32), 0)
+                  if prepared.has_mat else None)
+        if n_attrs == 0:
+            bary = torch.stack([untile(lb[:, 3]), untile(lb[:, 4])], dim=-1)
+            return GBuffer(untile(lb[:, 0]), tri_id, bary, mat_id), None
+        g = GBuffer(untile(lb[:, 0]), tri_id, None, mat_id)
+        attrs = torch.stack([untile(lb[:, 3 + a]) for a in range(n_attrs)],
+                            dim=-1)
+        return g, attrs
+
+    if dual:
+        return [unpack(blk[:, :pp]), unpack(blk[:, pp:])]
+    g, attrs = unpack(blk)
+    return (g, attrs) if n_attrs else g

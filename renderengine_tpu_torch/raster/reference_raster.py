@@ -57,9 +57,12 @@ def _coverage_and_depth(coef, tie, p):
 
 def rasterize_reference(setup: TriSetup, height: int, width: int,
                         chunk: int = 64, y0: int = 0,
-                        full_height: int | None = None) -> GBuffer:
+                        full_height: int | None = None,
+                        peel_bounds=None) -> GBuffer:
     """Full-image brute force. ``y0``/``full_height`` select a row slice
-    of a taller viewport."""
+    of a taller viewport. ``peel_bounds``: optional (prev [H,W], zmax
+    [H,W]) — keep only fragments with prev < depth <= zmax (depth
+    peeling)."""
     dev = setup.coef.device
     t = setup.coef.shape[0]
     p = pixel_vectors(height, width, y0, full_height, device=dev)
@@ -72,6 +75,9 @@ def rasterize_reference(setup: TriSetup, height: int, width: int,
         k = c.shape[0]
         cover, depth = _coverage_and_depth(c, setup.tie[sl:sl + chunk], p)
         cover = cover & setup.valid[sl:sl + chunk, None, None]
+        if peel_bounds is not None:
+            cover = cover & (depth > peel_bounds[0][None]) \
+                & (depth <= peel_bounds[1][None])
         depth = torch.where(cover, depth, INF_DEPTH + 1.0)
         ids = sl + torch.arange(k, dtype=torch.int32,
                                 device=dev)[:, None, None]

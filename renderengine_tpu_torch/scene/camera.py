@@ -59,6 +59,10 @@ class Camera:
     def right(self) -> np.ndarray:
         return self.view[0, :3].astype(np.float32)
 
+    def frustum_corners(self) -> np.ndarray:
+        return math3d.frustum_corners_world(self.view, self.proj)
+
+
 @dataclass
 class ViewProperties:
     """The per-frame view uniform block (reference ``view.glsl:1-11`` /

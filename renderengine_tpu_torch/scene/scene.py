@@ -54,6 +54,9 @@ class Scene:
     def scene_aabb(self) -> AABB:
         return self.tree.scene_aabb()
 
+    def node_world_aabbs(self) -> tuple[list[AABB], list[np.ndarray]]:
+        return self.tree.local_aabbs, self.tree.transforms
+
     # --- device upload -------------------------------------------------
 
     def upload(self, pad_tris_to: int = 256, chart_subdiv=None) -> dict:

@@ -4,8 +4,6 @@ package's ``shading/pbr.py``).
 
 Operates on [H,W]-shaped interpolated fragment attributes, dense over the
 framebuffer. The light loop runs over the (small, static) light axis.
-Shadow lookups and the IBL diffuse term arrive with later slices; asking
-for them raises.
 """
 
 from __future__ import annotations
@@ -14,6 +12,7 @@ import torch
 
 from ..core.config import DebugEquation, DebugInput
 from . import sampling
+from .shadow import compute_shadow_directional
 from .srgb import srgb_to_linear
 
 PI = 3.14159265359
@@ -243,26 +242,21 @@ _LIGHT_KEYS = ("light_type", "light_color", "light_pos", "light_dir",
                "light_cos_outer", "light_shadow_index")
 
 
-def check_unported(shadow_maps=None, ibl_diffuse=False):
-    """Shadow lookups and IBL diffuse belong to later slices."""
-    if shadow_maps is not None:
-        raise NotImplementedError(
-            "shadow lookups are not ported yet (shadow slice)")
-    if ibl_diffuse:
-        raise NotImplementedError(
-            "ibl_diffuse is not ported yet (sky/IBL slice)")
-
-
 def brdf_lighting(scene, frag_pos, uv, frag_normal, mat_id, view_args,
-                  shadow_maps=None, slots_used=(True, True, True, True),
-                  max_aniso=1, debug_views=True, ibl_diffuse=False,
-                  dither=False, covered=None):
+                  shadow_maps=None, shadow_transforms=None,
+                  slots_used=(True, True, True, True),
+                  shadow_lights=None, max_aniso=1, debug_views=True,
+                  penumbra_tiles=0, shadow_stats=None, ibl_diffuse=False,
+                  dither=False, covered=None, penumbra_full_h=None):
     """Port of ``BRDF_Lighting``. Returns rgba (linear, pre-sRGB-encode).
 
     view_args: dict with view_pos [3], exposure, debug_input,
-    debug_equation. ``debug_views``: False drops the debug-switch selects
+    debug_equation. shadow_maps: ``shadow.ShadowPack`` or None;
+    shadow_transforms: [NS,4,4]. shadow_lights: optional per-light flags
+    (0 = no lookup, 1 = planar map, 6 = point-light cube) — without it
+    every light pays the PCF window gather just to multiply the result by
+    zero. ``debug_views``: False drops the debug-switch selects
     (``pbr.glsl:410-440``)."""
-    check_unported(shadow_maps, ibl_diffuse)
     mat = remap_material(scene, mat_id, frag_pos, uv, frag_normal, slots_used,
                          max_aniso, dither, covered=covered)
 
@@ -305,6 +299,25 @@ def brdf_lighting(scene, frag_pos, uv, frag_normal, mat_id, view_args,
         light_result = brdf * (light["light_intensity"] * att * nol)[..., None] \
             * light["light_color"]
         shadow = torch.zeros_like(nol)
+        if shadow_maps is not None and (shadow_lights is None
+                                        or shadow_lights[li]):
+            # directional / spot planar maps, or a point-light cube
+            # (shadow_lights[li] == 6). The lookup handles ortho (w == 1)
+            # and perspective (divide + cull behind the light plane) alike.
+            cube = shadow_lights is not None and shadow_lights[li] == 6
+            casts = ((light["light_type"] == 1)
+                     | (light["light_type"] == 2)
+                     | (light["light_type"] == 3)) \
+                & (light["light_shadow_index"] >= 0)
+            shadow = torch.where(
+                casts,
+                compute_shadow_directional(
+                    shadow_maps, shadow_transforms,
+                    light["light_shadow_index"], light["light_pos"],
+                    frag_pos, n, penumbra_tiles=penumbra_tiles,
+                    stats_out=shadow_stats, cube=cube,
+                    penumbra_full_h=penumbra_full_h),
+                0.0)
         l0 = l0 + torch.where(in_range, (1.0 - shadow)[..., None] * light_result,
                               0.0)
         if debug_views:
@@ -313,7 +326,15 @@ def brdf_lighting(scene, frag_pos, uv, frag_normal, mat_id, view_args,
 
     color = l0 + mat["emissive"][..., :3] * mat["emissive"][..., 3:4]
     color = color * view_args["exposure"]
-    ambient = 0.03 * mat["base_color"][..., :3] * mat["occlusion"][..., None]
+    if ibl_diffuse:
+        # diffuse irradiance from the captured environment; replaces the
+        # flat 0.03 ambient (pbr.glsl:448) when enabled. One row gather
+        # from the tiny pre-convolved cube (scene.procedural_env).
+        irr = sampling.sample_cubemap_f32(scene["irradiance"], mat["normal"])
+        ambient = mat["diffuse"] * irr[..., :3] * mat["occlusion"][..., None]
+    else:
+        ambient = 0.03 * mat["base_color"][..., :3] \
+            * mat["occlusion"][..., None]
     color = color + ambient
     out = torch.cat([color, mat["base_color"][..., 3:4]], -1)
     if not debug_views:

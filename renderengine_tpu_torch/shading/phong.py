@@ -13,18 +13,20 @@ from __future__ import annotations
 import torch
 
 from . import sampling
-from .pbr import _sample_slot, _slot, check_unported, dot3, norm
+from .pbr import _sample_slot, _slot, dot3, norm
+from .shadow import compute_shadow_directional
 from .srgb import srgb_to_linear
 
 
 def phong_lighting(scene, frag_pos, uv, frag_normal, mat_id, view_args,
-                   shadow_maps=None, slots_used=(True, True, True, True),
-                   max_aniso=1, debug_views=True, ibl_diffuse=False,
-                   dither=False, covered=None):
+                   shadow_maps=None, shadow_transforms=None,
+                   slots_used=(True, True, True, True),
+                   shadow_lights=None, max_aniso=1, debug_views=True,
+                   penumbra_tiles=0, shadow_stats=None, ibl_diffuse=False,
+                   dither=False, covered=None, penumbra_full_h=None):
     """Port of ``PhongLighting`` (phong.glsl:38-81), summed over lights.
     Light colors map: ambient = 0.03*color, diffuse = specular =
     intensity*color. Returns rgba (linear)."""
-    check_unported(shadow_maps, ibl_diffuse)
     dev = uv.device
     row = sampling.table_lookup(scene["mat_all"], mat_id)
     core = row[..., :16]
@@ -73,6 +75,20 @@ def phong_lighting(scene, frag_pos, uv, frag_normal, mat_id, view_args,
         spot = torch.where(ltype == 3, spot, 1.0)
 
         shadow = torch.zeros_like(k_d)
+        if shadow_maps is not None and (shadow_lights is None
+                                        or shadow_lights[li]):
+            cube = shadow_lights is not None and shadow_lights[li] == 6
+            casts = scene["light_shadow_index"][li] >= 0
+            shadow = torch.where(
+                casts,
+                compute_shadow_directional(shadow_maps, shadow_transforms,
+                                           scene["light_shadow_index"][li],
+                                           scene["light_pos"][li], frag_pos, n,
+                                           penumbra_tiles=penumbra_tiles,
+                                           stats_out=shadow_stats,
+                                           cube=cube,
+                                           penumbra_full_h=penumbra_full_h),
+                0.0)
         in_range = li < scene["n_lights"]
         contrib = (ambient + (1.0 - shadow)[..., None]
                    * (diffuse * spot[..., None] + specular * spot[..., None])) \

@@ -1,5 +1,5 @@
 """Device texture sampling from the block atlas (torch port of the JAX
-package's ``shading/sampling.py``, 2D texture paths).
+package's ``shading/sampling.py``: 2D texture paths and the cubemap).
 
 Replaces the reference's combined-image-sampler descriptors + fixed-function
 samplers (``TextureCache.cpp:167-197``: linear min/mag, repeat wrap,
@@ -502,3 +502,70 @@ def sample_slots_aniso_tiered(atlas, mip_y, mip_x, slots, uv,
     return outs
 
 
+# --- cubemap --------------------------------------------------------------
+
+def _cube_face_uv(dirs: torch.Tensor):
+    """dirs [...,3] -> (face int64, u, v) with GL/Vulkan face conventions."""
+    x, y, z = dirs[..., 0], dirs[..., 1], dirs[..., 2]
+    ax, ay, az = x.abs(), y.abs(), z.abs()
+    is_x = (ax >= ay) & (ax >= az)
+    is_y = (~is_x) & (ay >= az)
+    face = torch.where(
+        is_x, torch.where(x > 0, 0, 1),
+        torch.where(is_y, torch.where(y > 0, 2, 3), torch.where(z > 0, 4, 5)))
+    ma = torch.where(is_x, ax, torch.where(is_y, ay, az)).clamp_min(1e-20)
+    sc = torch.where(is_x, torch.where(x > 0, -z, z),
+                     torch.where(is_y, x, torch.where(z > 0, x, -x)))
+    tc = torch.where(is_y, torch.where(y > 0, z, -z), -y)
+    return face, 0.5 * (sc / ma + 1.0), 0.5 * (tc / ma + 1.0)
+
+
+def _bilerp_f32_rows(rows16: torch.Tensor, fx, fy) -> torch.Tensor:
+    """Planar bilinear mix of gathered f32 block rows [16, ...] (row
+    layout c00[4] c10[4] c01[4] c11[4]); same op order as
+    ``_bilerp_words``."""
+    chans = []
+    for ch in range(4):
+        c00, c10 = rows16[ch], rows16[4 + ch]
+        c01, c11 = rows16[8 + ch], rows16[12 + ch]
+        top = c00 * (1 - fx) + c10 * fx
+        bot = c01 * (1 - fx) + c11 * fx
+        chans.append(top * (1 - fy) + bot * fy)
+    return torch.stack(chans, -1)
+
+
+def _sample_cube_blocks(cube: torch.Tensor, dirs: torch.Tensor,
+                        gather_words) -> torch.Tensor:
+    """Shared bilinear cube sampling over a 2x2-block table;
+    ``gather_words`` maps (flat indices, fx, fy) -> the mixed sample."""
+    face, u, v = _cube_face_uv(dirs)
+    s = cube.shape[1]
+    st_x = u * s - 0.5
+    st_y = v * s - 0.5
+    ix0 = torch.floor(st_x).to(torch.int64)
+    iy0 = torch.floor(st_y).to(torch.int64)
+    fx = st_x - ix0.to(torch.float32)
+    fy = st_y - iy0.to(torch.float32)
+    x0 = ix0.clamp(0, s - 1)           # clamp-to-edge within the face
+    y0 = iy0.clamp(0, s - 1)
+    return gather_words((face * s + y0) * s + x0, fx, fy)
+
+
+def sample_cubemap(cube: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """Bilinear cubemap sample (GL/Vulkan face conventions). cube
+    [6,S,S,4] int32 words of 2x2 u8 blocks (clamp-to-edge baked in — see
+    scene.textures.build_atlas); dirs [...,3]. Returns rgba f32 [...,4].
+    One gather per sample."""
+    return _sample_cube_blocks(
+        cube, dirs,
+        lambda flat, fx, fy: _bilerp_words(
+            _gather_block_words(cube, flat), fx, fy))
+
+
+def sample_cubemap_f32(cube: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample of an f32 block cube [6,S,S,16] (e.g. the
+    irradiance map): same one-row-gather scheme, no unpack."""
+    return _sample_cube_blocks(
+        cube, dirs,
+        lambda flat, fx, fy: _bilerp_f32_rows(
+            _gather_block_words(cube, flat), fx, fy))

@@ -1,0 +1,313 @@
+"""Shadow lookup with 3x3 PCF (torch port of the JAX package's
+``shading/shadow.py``).
+
+Port of ``Assets/Shaders/shadow.glsl:24-56``: fragment -> light clip space,
+slope-scaled bias max(0.05*(1-N.L), 0.005), 3x3 PCF over texel offsets,
+/9. The shadow sampler is nearest / clamp-to-edge with an opaque-white
+border (``ShadowSystem.cpp:18-35``) — out-of-map lookups read depth 1.0 and
+therefore never shadow.
+
+Two-stage, exact:
+
+1. The depth map is packed once per (cached) shadow render into 4x4-texel
+   u16 windows anchored on a stride-2 grid, so the 9 PCF taps cost ONE
+   32-byte gather — plus a COARSE table: per 8x8-texel cell, the min/max
+   quantized depth over the 10x10 apron that bounds every 3x3 footprint
+   centered in the cell (one word: min | max<<16).
+2. The per-pixel lookup first gathers only the 4-byte coarse row. Pixels
+   whose threshold clears the cell's min/max are EXACTLY fully-lit (no tap
+   passes) or fully-shadowed (every in-range tap passes: factor =
+   n_in_range/9, computed arithmetically). Only *penumbra* pixels —
+   threshold inside [min, max] — need the 32-byte window gather; they are
+   compacted by screen row segment (static budget, overflow counted like
+   every other budget) and scattered back. Results are bit-exact with the
+   dense window path.
+
+The packed words are the JAX package's u32 words held as int32 bit views
+(torch has no shifts on uint32 on the CPU): a half is unpacked with
+``(w >> s) & 0xFFFF``, which is exact on int32 whatever the sign bit.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from .sampling import (gather_row_segments, row_segment_counts, row_segments,
+                       scatter_row_segments, select_row_segments)
+
+
+class ShadowPack(NamedTuple):
+    """Packed shadow-map tables (one per shadow render, cached).
+
+    blocks: [NS, A, A, 8] int32 (u32 bit views) — stride-2-anchored 4x4
+            u16 windows (A = E//2 + 1); the one-gather 3x3 PCF footprint.
+    coarse: [NS, C, C] int32 (u32 bit views) — per 8x8-texel cell
+            (C = ceil(E/8)), min | max << 16 of the quantized depth over
+            the cell's 10x10 apron (bounds every 3x3 footprint centered in
+            the cell).
+    """
+    blocks: torch.Tensor
+    coarse: torch.Tensor
+
+
+_CELL = 8   # coarse cell edge in texels
+
+
+def _pack_halves(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """Two u16 values (as int64 in [0, 65535]) -> the u32 word lo | hi<<16
+    as an int32 bit view. Built in int64 and narrowed by two's complement,
+    so a high half >= 0x8000 keeps its bits."""
+    w = lo | (hi << 16)
+    return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
+
+
+def pack_shadow_blocks(shadow_maps: torch.Tensor) -> ShadowPack:
+    """[NS,E,E] depth -> ShadowPack. Depth is quantized to 16-bit unorm —
+    the quantization step (1.5e-5) is far below the minimum shadow bias
+    (0.005), so compare results are unchanged in practice. White (1.0)
+    border baked in.
+
+    A pixel with clipped center texel (iy', ix') (iy' = clip(iy,-1,E)) uses
+    anchor a2 = (iy'+1) >> 1; its 3x3 taps iy'-1..iy'+1 fall inside the 4x4
+    window at local rows p..p+2 where p = iy' - 2*a2 + 2 in {1, 2}.
+    """
+    e = shadow_maps.shape[1]
+    q = torch.round(shadow_maps.clamp(0.0, 1.0) * 65535.0).to(torch.int64)
+    # anchors a2 in [0, e//2]: window rows span [-2, e+2)
+    p = F.pad(q, (2, 2, 2, 2), value=65535)
+    na = e // 2 + 1  # anchor count per axis (a2 in 0..e//2)
+    words = []
+    for t in range(0, 16, 2):          # u16 index t = 4*dy + dx; word t//2
+        halves = []
+        for tt in (t, t + 1):
+            dy, dx = tt >> 2, tt & 3
+            # window row dy at anchor a2 = padded row 2*a2 + dy
+            halves.append(p[:, dy: dy + 2 * na - 1: 2,
+                            dx: dx + 2 * na - 1: 2])
+        words.append(_pack_halves(halves[0], halves[1]))
+    blocks = torch.stack(words, dim=-1).contiguous()
+
+    # coarse min/max per 8x8 cell over its 10x10 apron (texel rows
+    # [8c-1, 8c+8]). p is padded by 2 with 65535; dropping its first
+    # row/col aligns apron row 8c-1 with pool-window start 8c (stride 8).
+    # max_pool2d on f32 is exact for integers <= 65535.
+    c = -(-e // _CELL)
+    pi = p[:, 1:, 1:].to(torch.float32)
+    need = _CELL * (c - 1) + _CELL + 2        # rows needed for c windows
+    if pi.shape[1] < need:
+        pi = F.pad(pi, (0, need - pi.shape[2], 0, need - pi.shape[1]),
+                   value=65535.0)
+    mn = -F.max_pool2d(-pi[:, None], _CELL + 2, _CELL)[:, 0]
+    mx = F.max_pool2d(pi[:, None], _CELL + 2, _CELL)[:, 0]
+    mn = mn[:, :c, :c].to(torch.int64)
+    mx = mx[:, :c, :c].to(torch.int64)
+    return ShadowPack(blocks, _pack_halves(mn, mx).contiguous())
+
+
+def _window_pcf(blk32, threshold, u, v, py, px_, e):
+    """9-tap PCF sum from gathered 4x4 windows. blk32 [...,8] int32 words;
+    returns the /9 factor (border-range tests included). Planar form: the
+    window unpacks to 16 per-tap comparison planes via shifts on the
+    gathered words."""
+    words = torch.movedim(blk32, -1, 0)                    # [8, ...]
+    scale = 1.0 / 65535.0
+
+    def cmp(r, c):
+        t = 4 * r + c       # u16 index: word t//2, half t&1
+        d16 = ((words[t >> 1] >> (16 * (t & 1))) & 0xFFFF) \
+            .to(torch.float32) * scale
+        return (threshold > d16).to(torch.float32)
+
+    cmpp = [[cmp(r, c) for c in range(4)] for r in range(4)]
+
+    inv_e = 1.0 / e
+    ue = u * inv_e
+    ve = v * inv_e
+    pyb = py.bool()
+    pxb = px_.bool()
+    shadow = torch.zeros_like(threshold)
+    for dy in (-1, 0, 1):
+        tv_in = (ve + dy * inv_e >= 0.0) & (ve + dy * inv_e < 1.0)
+        for dx in (-1, 0, 1):
+            d = torch.where(
+                pyb,
+                torch.where(pxb, cmpp[2 + dy][2 + dx], cmpp[2 + dy][1 + dx]),
+                torch.where(pxb, cmpp[1 + dy][2 + dx], cmpp[1 + dy][1 + dx]))
+            tu_in = (ue + dx * inv_e >= 0.0) & (ue + dx * inv_e < 1.0)
+            shadow = shadow + torch.where(tu_in & tv_in, d, 0.0)
+    return shadow / 9.0
+
+
+def _n_in_range(u, v, e):
+    """How many of the 9 taps fall inside the map — pure arithmetic
+    (the white border contributes 0 to the PCF sum)."""
+    inv_e = 1.0 / e
+    ue = u * inv_e
+    ve = v * inv_e
+    nu = torch.zeros_like(u)
+    nv = torch.zeros_like(v)
+    for d in (-1, 0, 1):
+        nu = nu + ((ue + d * inv_e >= 0.0) & (ue + d * inv_e < 1.0))
+        nv = nv + ((ve + d * inv_e >= 0.0) & (ve + d * inv_e < 1.0))
+    return nu * nv
+
+
+def _to_light_clip(m, frag_pos):
+    """Light clip coordinates m @ (pos, 1): m [4,4], frag_pos [H,W,3] ->
+    [H,W,4], each row a fixed (x + y) + z sum plus the translation."""
+    p = m[:, :3] * frag_pos[:, :, None, :]                 # [H,W,4,3]
+    return ((p[..., 0] + p[..., 1]) + p[..., 2]) + m[:, 3]
+
+
+def compute_shadow_directional(shadow_pack, shadow_transforms, shadow_index,
+                               light_pos, frag_pos, normal,
+                               penumbra_tiles: int = 0,
+                               tile_h: int = 8, tile_w: int = 128,
+                               stats_out: list | None = None,
+                               cube: bool = False,
+                               penumbra_full_h: int | None = None):
+    """shadow_pack: ShadowPack (see ``pack_shadow_blocks``);
+    shadow_transforms [NS,4,4] (= lightProj @ lightView, the
+    MaterialShadowData.transform, ``shadow.glsl:31``); shadow_index 0-d
+    tensor; frag_pos/normal [H,W,3]. Returns shadow factor [H,W]
+    (1 = shadowed).
+
+    ``cube``: point-light cube lookup (beyond the reference's
+    directional-only path): shadow_index is the base of six consecutive
+    face maps (+X -X +Y -Y +Z -Z); each fragment selects the face of its
+    dominant light-to-fragment axis. The face transform is applied by a
+    6-way select rather than a per-pixel matrix gather.
+
+    ``penumbra_tiles`` > 0 enables the two-stage path: the 32-byte window
+    gather runs only on the per-row budgeted [1, tile_w] segments with the
+    most penumbra pixels; other pixels resolve from the 4-byte coarse row
+    exactly. Penumbra segments beyond the budget fall back to the
+    fully-shadowed estimate and are COUNTED (appended to ``stats_out`` as
+    (n_penumbra_tiles, overflow)) so the renderer can react. 0 = dense
+    single-stage (every pixel pays the window gather).
+    """
+    blocks = shadow_pack.blocks
+    ns, na, _, _ = blocks.shape
+    e = (na - 1) * 2
+    if cube:
+        d = frag_pos - light_pos
+        dx, dy_, dz = d[..., 0], d[..., 1], d[..., 2]
+        ax, ay, az = dx.abs(), dy_.abs(), dz.abs()
+        face = torch.where(
+            (ax >= ay) & (ax >= az),
+            torch.where(dx >= 0, 0, 1),
+            torch.where(ay >= az,
+                        torch.where(dy_ >= 0, 2, 3),
+                        torch.where(dz >= 0, 4, 5))).to(torch.int64)
+        base = shadow_index.clamp(0, max(ns - 6, 0)).to(torch.int64)
+        # six consecutive rows from a device-side base: no host read
+        m6 = shadow_transforms[base + torch.arange(
+            6, device=shadow_transforms.device)]
+        idx = base + face                              # [H,W]
+        flp = torch.zeros(frag_pos.shape[:-1] + (4,), dtype=frag_pos.dtype,
+                          device=frag_pos.device)
+        for f in range(6):
+            flp = torch.where((face == f)[..., None],
+                              _to_light_clip(m6[f], frag_pos), flp)
+    else:
+        idx = shadow_index.clamp(0, ns - 1).to(torch.int64)
+        flp = _to_light_clip(shadow_transforms[idx], frag_pos)
+    w = flp[..., 3]
+    safe_w = torch.where(w == 0, 1.0, w)
+    current = flp[..., 2] / safe_w
+
+    # reference quirk kept: lightDir from light *position* even for
+    # directional lights (shadow.glsl:33)
+    ld = light_pos - frag_pos
+    ld = ld / torch.sqrt((ld[..., 0] * ld[..., 0] + ld[..., 1] * ld[..., 1])
+                         + ld[..., 2] * ld[..., 2]).clamp_min(1e-20)[..., None]
+    nl = normal * ld
+    bias = (0.05 * (1.0 - ((nl[..., 0] + nl[..., 1]) + nl[..., 2]))
+            ).clamp_min(0.005)
+    threshold = current - bias
+
+    map_xy = 0.5 * (flp[..., :2] / safe_w[..., None]) + 0.5
+    u = map_xy[..., 0] * e
+    v = map_xy[..., 1] * e
+    ix = torch.floor(u).to(torch.int64)
+    iy = torch.floor(v).to(torch.int64)
+
+    cy = iy.clamp(-1, e)                 # clipped center texel
+    cx = ix.clamp(-1, e)
+    a2y = (cy + 1) >> 1
+    a2x = (cx + 1) >> 1
+    py = cy - 2 * a2y + 1                # window-local row of tap dy=-1: {0,1}
+    px_ = cx - 2 * a2x + 1
+
+    # perspective (spot) maps: fragments behind the light plane (w <= 0)
+    # project nonsensically — they are never shadowed. Ortho maps have
+    # w == 1, so the guard is free for directional lights.
+    invalid = (current > 1.0) | (w <= 0.0)
+
+    if not penumbra_tiles:
+        blk32 = blocks.reshape(-1, 8)[(idx * na + a2y) * na + a2x]
+        shadow = _window_pcf(blk32, threshold, u, v, py, px_, e)
+        return torch.where(invalid, 0.0, shadow)
+
+    # --- two-stage path ---------------------------------------------------
+    # Compaction is per-ROW [1, tile_w] segments (sampling.select_row_
+    # segments): selection depends only on each pixel row's own data, so
+    # an image-row split computes bit-identical results. ``penumbra_tiles``
+    # keeps its (tile_h x tile_w)-tile units for the budget; it converts
+    # to a per-row segment budget here.
+    c = shadow_pack.coarse.shape[1]
+    cell_y = iy.clamp(0, e - 1) >> 3
+    cell_x = ix.clamp(0, e - 1) >> 3
+    crow = shadow_pack.coarse.reshape(-1)[(idx * c + cell_y) * c + cell_x]
+    mn = (crow & 0xFFFF).to(torch.float32) * (1.0 / 65535.0)
+    mx = ((crow >> 16) & 0xFFFF).to(torch.float32) * (1.0 / 65535.0)
+
+    n_in = _n_in_range(u, v, e)
+    lit = (threshold <= mn) | (n_in == 0) | invalid
+    full_sh = threshold > mx             # every in-range tap passes
+    easy_val = torch.where(lit, 0.0, n_in * (1.0 / 9.0))
+    penumbra = ~(lit | full_sh)
+
+    h, wd = threshold.shape
+    ntx, _ = row_segments(h, wd, tile_w)
+    # per-row budget k: total tile budget spread evenly over pixel rows.
+    # The budget is stated in FULL-FRAME tiles, so the conversion divides
+    # by the full framebuffer height, not the slice height.
+    full_h = penumbra_full_h or h
+    k_row = max(1, min(-(-penumbra_tiles * tile_h // full_h), ntx))
+    frac = min(1.0, k_row / ntx)
+    sel, k = select_row_segments(penumbra, tile_w, frac)
+
+    # observed need in the budget's tile units: the max per-row segment
+    # need, scaled back (budget >= n_pen  =>  k_row covers the busiest row)
+    need_row = (row_segment_counts(penumbra, tile_w) > 0).sum(-1)    # [H]
+    n_pen = -(-(need_row.max() * full_h) // tile_h)
+    overflow = (need_row - k).clamp_min(0).sum()
+
+    us = gather_row_segments(u, sel, tile_w)
+    vs = gather_row_segments(v, sel, tile_w)
+    ts = gather_row_segments(threshold, sel, tile_w)
+    idxs = gather_row_segments(idx, sel, tile_w) if cube else idx
+    ixs = torch.floor(us).to(torch.int64)
+    iys = torch.floor(vs).to(torch.int64)
+    cys = iys.clamp(-1, e)
+    cxs = ixs.clamp(-1, e)
+    a2ys = (cys + 1) >> 1
+    a2xs = (cxs + 1) >> 1
+    blk32 = blocks.reshape(-1, 8)[(idxs * na + a2ys) * na + a2xs]
+    full_sub = _window_pcf(blk32, ts, us, vs,
+                           cys - 2 * a2ys + 1, cxs - 2 * a2xs + 1, e)
+
+    full_map, have_map = scatter_row_segments(full_sub, sel, h, wd, tile_w)
+
+    if stats_out is not None:
+        stats_out.append((n_pen, overflow))
+
+    # penumbra pixels beyond the budget fall back to the fully-shadowed
+    # estimate (counted above); easy pixels are exact either way
+    shadow = torch.where(penumbra & have_map, full_map, easy_val)
+    shadow = torch.where(penumbra & ~have_map, n_in * (1.0 / 9.0), shadow)
+    return torch.where(current > 1.0, 0.0, shadow)

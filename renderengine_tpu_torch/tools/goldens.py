@@ -1,8 +1,8 @@
-"""The opaque golden-frame cases of this package, and the golden bar.
+"""The golden-frame cases of this package, and the golden bar.
 
-The same scenes and configs as the JAX package's ``tests/golden_configs.py``
-cases ``cube_phong``, ``multimesh_opaque``, ``bindless_textures`` and
-``normal_orm``, built with this package's own scene and config modules.
+The same seven scenes and configs as the JAX package's
+``tests/golden_configs.py``, built with this package's own scene and
+config modules.
 
 Each frame is held to the golden bar (``tests/test_golden.py``): within
 1/255 per channel on >= 99.9% of pixels and 4/255 everywhere. The golden
@@ -92,7 +92,7 @@ def material_showcase_scene(width=WIDTH, height=HEIGHT):
 
 
 def golden_cases():
-    """[(name, scene_factory, RenderConfig)] of the opaque goldens."""
+    """[(name, scene_factory, RenderConfig)] of the seven goldens."""
     from ..scene import procedural
 
     w, h = WIDTH, HEIGHT
@@ -108,12 +108,20 @@ def golden_cases():
         return procedural.sponza_scene(width=w, height=h, n_textures=48,
                                        target_tris=2_000)
 
-    opaque = RenderConfig(width=w, height=h, shadows=False, skybox=False,
-                          translucency=False)
+    base = RenderConfig(width=w, height=h, shadow_extent=128)
+    opaque = base.replace(shadows=False, skybox=False, translucency=False)
     return [
         ("cube_phong", cube, opaque.replace(shading=ShadingModel.PHONG)),
         ("multimesh_opaque", multimesh, opaque),
         ("bindless_textures", bindless, opaque),
+        # directional shadow mapping (depth pass + PCF) over the full scene
+        ("shadows_pcf", bindless,
+         base.replace(skybox=False, translucency=False)),
+        # skybox cubemap + the full default frame (translucency on)
+        ("skybox_full", bindless, base),
+        # diffuse irradiance from the environment cube in the lighting
+        ("ibl_diffuse", bindless,
+         base.replace(shadows=False, translucency=False, ibl_diffuse=True)),
         ("normal_orm", material_showcase_scene, opaque),
     ]
 

@@ -1,16 +1,21 @@
 """Where the time of one frame goes, on the GPU.
 
     python -m renderengine_tpu_torch.tools.profile_frame \
-        [--width 1920] [--height 1080] [--frames 3] [--trace DIR]
+        [--width 1920] [--height 1080] [--frames 3] [--trace DIR] [--opaque]
 
 Builds the procedural Sponza (260k triangles, 200 textures) at the given
-size with the opaque per-pixel config that ``chip_smoke.py`` drives,
-renders two warm-up frames, then runs ``torch.profiler`` over ``--frames``
-frames and prints one JSON line: per layer span (``frame.setup``,
-``frame.bin_pack``, ``frame.raster``, ``frame.shade``, ``frame.encode``,
-named in ``graph/frame.py``) the device ms per frame; the kernels with the
-most device time; the wall ms per frame, the kernel launches per frame and
-the device busy share (union of kernel intervals over the window).
+size with the default config that ``chip_smoke.py`` drives (``--opaque``:
+shadows, skybox and translucency off, the first slice's frame), renders
+two warm-up frames (the first also renders the cached shadow maps), then
+runs ``torch.profiler`` over ``--frames`` frames and prints one JSON line:
+per layer span (``frame.setup``, ``frame.bin_pack``, ``frame.raster``,
+``frame.shade``, ``frame.mask``, ``frame.sky``, ``frame.peel_raster``,
+``frame.peel_shade``, ``frame.encode``, named in ``graph/frame.py``) the
+device ms per frame; the kernels with the most device time; the wall ms
+per frame, the kernel launches per frame and the device busy share (union
+of kernel intervals over the window). It then marks the shadow maps dirty
+and profiles one more frame for the ``frame.shadow`` span (both maps'
+setup, binning, K1 and packing).
 
 ``--trace DIR`` also writes the profiler's Chrome trace there. Needs a
 CUDA card; exits non-zero without one.
@@ -27,8 +32,9 @@ from pathlib import Path
 
 import torch
 
-SPANS = ("frame.setup", "frame.bin_pack", "frame.raster", "frame.shade",
-         "frame.encode")
+SPANS = ("frame.shadow", "frame.setup", "frame.bin_pack", "frame.raster",
+         "frame.shade", "frame.mask", "frame.sky", "frame.peel_raster",
+         "frame.peel_shade", "frame.encode")
 
 
 def _card() -> str:
@@ -98,6 +104,8 @@ def main(argv=None) -> None:
     ap.add_argument("--frames", type=int, default=3)
     ap.add_argument("--trace", default=None,
                     help="directory for the Chrome trace")
+    ap.add_argument("--opaque", action="store_true",
+                    help="shadows, skybox and translucency off")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_frame: needs a CUDA card", file=sys.stderr)
@@ -108,15 +116,19 @@ def main(argv=None) -> None:
     from ..scene import procedural
 
     scene = procedural.sponza_scene(width=args.width, height=args.height)
-    cfg = RenderConfig(width=args.width, height=args.height, shadows=False,
-                       skybox=False, translucency=False)
+    cfg = RenderConfig(width=args.width, height=args.height)
+    if args.opaque:
+        cfg = cfg.replace(shadows=False, skybox=False, translucency=False)
     renderer = FrameRenderer(scene, cfg)
     for _ in range(2):
         renderer.render()
     torch.cuda.synchronize()
     out = {"card": _card(), "width": args.width, "height": args.height,
-           "frames": args.frames,
+           "frames": args.frames, "opaque": args.opaque,
            "profiler": profiled(renderer, args.frames, args.trace)}
+    if renderer.n_shadows:
+        renderer.mark_shadows_dirty()
+        out["shadow_frame_profiler"] = profiled(renderer, 1, None)
     print(json.dumps(out))
 
 

@@ -6,7 +6,8 @@ also runs where only PyTorch is installed:
     python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 
 Tolerance, stated: the kernel equals its plain version bit for bit (tri
-ids, material ids, depths and attributes): both evaluate every plane as
+ids, material ids, depths and attributes, in every mode: single winner,
+peel, dual, each on the dense and the sparse grid): both evaluate every plane as
 (a*px + b*py) + c with IEEE rounding and no contraction, divide with IEEE
 division and walk each tile's pairs in the same order."""
 
@@ -45,10 +46,28 @@ def _random_setup(rng, n, w, h, cull):
                           w, h, cull)
 
 
+def _bounds(mode, prep, s, w, h):
+    """Peel bounds of a mode as a tile table: ``peel`` peels past the
+    nearest layer under a far bound of 0.8, ``dual`` starts in front of
+    everything."""
+    if mode == "single":
+        return None
+    nty, ntx = -(-h // cr.TILE_H), -(-w // cr.TILE_W)
+    prev = torch.full((h, w), -1.0)
+    if mode.startswith("peel"):
+        g = cr.rasterize_cuda(s, h, w, prepared=prep)
+        g = g[0] if prep.n_attrs else g
+        prev = torch.where(g.tri_id >= 0, g.depth, 2.0)
+    return cr._tile_bounds((prev, torch.full((h, w), 0.8)), h, w, nty, ntx)
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["single", "peel", "dual", "single_sparse",
+                                  "peel_sparse", "dual_sparse"])
 @pytest.mark.parametrize("n_attrs", [0, 8])
 @pytest.mark.parametrize("w,h,cull,n", CASES)
-def test_kernel_matches_plain_on_card(cuda_device, w, h, cull, n, n_attrs):
+def test_kernel_matches_plain_on_card(cuda_device, w, h, cull, n, n_attrs,
+                                      mode):
     rng = np.random.default_rng(0)
     s = _random_setup(rng, n, w, h, cull)
     ap = None
@@ -59,15 +78,26 @@ def test_kernel_matches_plain_on_card(cuda_device, w, h, cull, n, n_attrs):
                             tri_mat=torch.arange(n, dtype=torch.int32) % 5)
     b = prep.bins
     ntx = -(-w // cr.TILE_W)
+    base = mode.split("_")[0]
+    bounds = _bounds(base, prep, s, w, h)
+    tile_map = None
+    if mode.endswith("sparse"):      # one tile short of the covered ones
+        k = max(1, int((b.counts > 0).sum()) - 1)
+        tile_map = cr.sparse_tile_map(b.counts, k)
+    dual = base == "dual"
     plain = cr.raster_tiles(prep.pair_data, b.starts, b.counts, ntx, w, h,
-                            n_attrs=n_attrs)
+                            n_attrs=n_attrs, bounds=bounds, tile_map=tile_map,
+                            dual=dual)
     before = cr.launch_counts["raster_tile"]
-    kern = cr.raster_tiles(prep.pair_data.to(cuda_device),
-                           b.starts.to(cuda_device), b.counts.to(cuda_device),
-                           ntx, w, h, n_attrs=n_attrs)
+    on = lambda t: None if t is None else t.to(cuda_device)  # noqa: E731
+    kern = cr.raster_tiles(on(prep.pair_data), on(b.starts), on(b.counts),
+                           ntx, w, h, n_attrs=n_attrs, bounds=on(bounds),
+                           tile_map=on(tile_map), dual=dual)
     torch.cuda.synchronize()
     assert cr.launch_counts["raster_tile"] == before + 1
     assert torch.equal(kern.cpu(), plain)
+    if cull == CullMode.NONE:     # the back-culled case has one layer only
+        assert (plain[:, 1] >= 0).any()
 
 
 @pytest.mark.gpu
@@ -96,6 +126,14 @@ def test_kernel_refuses_bad_inputs(cuda_device):
         cr.raster_tiles(pd, st, st, 2, 64, 8, n_attrs=0)      # 44 != 20 cols
     with pytest.raises(TypeError):
         cr.raster_tiles(pd, st.long(), st, 2, 64, 8, n_attrs=8)
+    with pytest.raises(ValueError, match="requires peel bounds"):
+        cr.raster_tiles(pd, st, st, 2, 64, 8, n_attrs=8, dual=True)
+    with pytest.raises(ValueError, match="bounds must be"):
+        cr.raster_tiles(pd, st, st, 2, 64, 8, n_attrs=8,
+                        bounds=torch.zeros((3, 2, 256), device=cuda_device))
+    with pytest.raises(TypeError, match="tile_map"):
+        cr.raster_tiles(pd, st, st, 2, 64, 8, n_attrs=8,
+                        tile_map=st.long())
 
 
 @pytest.mark.gpu

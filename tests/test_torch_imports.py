@@ -26,7 +26,13 @@ bad = sorted(m for m in sys.modules
              or m == "renderengine_tpu" or m.startswith("renderengine_tpu."))
 print(len(names))
 print(",".join(bad))
+print(",".join(names))
 """
+
+# the modules of the second slice (shadows, sky, translucency)
+SLICE_MODULES = ("shading.shadow", "shading.fitting", "shading.skybox",
+                 "shading.sampling", "graph.frame", "raster.cuda_raster",
+                 "tools.goldens", "tools.profile_frame")
 
 
 def test_port_modules_import_no_jax():
@@ -34,10 +40,11 @@ def test_port_modules_import_no_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    n_mods, bad = out.stdout.strip().split("\n") + [""] * (
-        2 - len(out.stdout.strip().split("\n")))
+    n_mods, bad, names = out.stdout.rstrip("\n").split("\n")
     assert int(n_mods) >= 20, "module walk found too few port modules"
     assert bad == "", f"port pulled in {bad}"
+    for m in SLICE_MODULES:
+        assert f"renderengine_tpu_torch.{m}" in names.split(","), m
 
 
 def _imported_modules(path: Path) -> set:
@@ -99,3 +106,7 @@ def test_non_cpu_tensor_never_takes_the_plain_path():
     st = torch.zeros(1, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         cuda_raster.raster_tiles(pd, st, st, 1, 32, 8, n_attrs=8)
+    bounds = torch.zeros((1, 2, 256), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_raster.raster_tiles(pd, st, st, 1, 32, 8, n_attrs=8,
+                                 bounds=bounds, tile_map=st, dual=True)

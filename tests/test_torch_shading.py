@@ -10,17 +10,30 @@ Tolerances, stated:
 - ``brdf_lighting`` (all debug views), ``phong_lighting``: within 2e-4
   absolute + 2e-4 relative (``pow`` and ``sqrt`` of two libraries).
 - ``encode_srgb8``: within 1/255 (a ``pow`` ulp can cross a rounding
-  boundary), equal on >= 99.9% of channels."""
+  boundary), equal on >= 99.9% of channels.
+- cubemap taps (``sample_cubemap``, ``sample_cubemap_f32``) and the skybox
+  (``render_skybox``, ``render_skybox_halfres``) within 2e-6, except where
+  a ray lies within rounding of a texel or face boundary and the two
+  packages pick neighbouring texels (at most 0.1% of pixels).
+- ``shade_sparse``: the selected tiles and the scattered result are equal
+  (integer counts, ties to the lowest tile index).
+- shadowed and ``ibl_diffuse`` lighting within 2e-4 absolute + 2e-4
+  relative; with shadows at most 0.1% of pixels may sit outside it, where
+  a PCF tap's compare hangs on the last bit of the threshold (a tap moves
+  the factor by 1/9)."""
 
 import numpy as np
 import pytest
 import torch
 import jax.numpy as jnp
 
+from renderengine_tpu.graph import frame as jframe
 from renderengine_tpu.graph.uniforms import unpack_params as junpack
 from renderengine_tpu.shading import pbr as jpbr
 from renderengine_tpu.shading import phong as jphong
 from renderengine_tpu.shading import sampling as jsmp
+from renderengine_tpu.shading import shadow as jshadow
+from renderengine_tpu.shading import skybox as jsky
 from renderengine_tpu.shading.srgb import encode_srgb8 as jencode
 from renderengine_tpu_torch.core.config import DebugEquation, DebugInput
 from renderengine_tpu_torch.graph import frame as tframe
@@ -32,6 +45,7 @@ from renderengine_tpu_torch.raster.setup import (corner_clip,
 from renderengine_tpu_torch.shading import pbr as tpbr
 from renderengine_tpu_torch.shading import phong as tphong
 from renderengine_tpu_torch.shading import sampling as tsmp
+from renderengine_tpu_torch.shading import skybox as tsky
 from renderengine_tpu_torch.shading.srgb import encode_srgb8
 from renderengine_tpu_torch.tools import goldens
 
@@ -47,7 +61,7 @@ def _frag(name):
     r = tframe.FrameRenderer(factory(), cfg, device="cpu",
                              backend="reference")
     u = torch.from_numpy(r.uniform_for_camera())
-    p = unpack_params(u, 0)
+    p = unpack_params(u, r.n_shadows)
     sc = r.scene_dev
     vo = tframe.cached_vertex_outputs(sc, p["view"], p["proj"])
     s = triangle_setup_corners(
@@ -231,3 +245,181 @@ def test_encode_srgb8():
     b = np.asarray(jencode(jnp.asarray(x))).astype(np.int32)
     assert np.abs(a - b).max() <= 1
     assert (a == b).mean() >= 0.999
+
+
+# --- cubemap, skybox, sparse shading, shadowed and IBL lighting --------------
+
+def _close_but_for(a, b, atol, rtol=0.0, share=1e-3):
+    """|a - b| <= atol + rtol*|b| on all but ``share`` of the leading
+    (pixel) entries."""
+    bad = np.abs(a - b) > atol + rtol * np.abs(b)
+    bad = bad.reshape(bad.shape[0], -1).any(-1) if bad.ndim > 1 else bad
+    assert bad.mean() <= share, f"{bad.sum()} of {bad.size} outside"
+
+
+@pytest.fixture(scope="module")
+def sky_scene():
+    factory, _ = _CASES["skybox_full"]
+    return factory().upload()
+
+
+def test_sample_cubemaps(sky_scene):
+    rng = np.random.default_rng(6)
+    dirs = rng.normal(size=(4000, 3)).astype(np.float32)
+    dirs[:6] = np.concatenate([np.eye(3), -np.eye(3)]).astype(np.float32)
+    dirs[6:9] = [[1, 1, 0.2], [-1, 0.3, -1], [0.5, -0.5, 0.5]]   # face ties
+    cube = np.asarray(sky_scene["cubemap"])
+    a = tsmp.sample_cubemap(_t(cube.view(np.int32)), _t(dirs)).numpy()
+    b = np.asarray(jsmp.sample_cubemap(jnp.asarray(cube), jnp.asarray(dirs)))
+    assert a.shape == (4000, 4) and b.std() > 0.01
+    _close_but_for(a, b, 2e-6)
+    irr = np.asarray(sky_scene["irradiance"])
+    assert irr.dtype == np.float32 and irr.shape[-1] == 16
+    a = tsmp.sample_cubemap_f32(_t(irr), _t(dirs)).numpy()
+    b = np.asarray(jsmp.sample_cubemap_f32(jnp.asarray(irr),
+                                           jnp.asarray(dirs)))
+    _close_but_for(a, b, 2e-6)
+
+
+@pytest.mark.parametrize("halfres", [False, True])
+@pytest.mark.parametrize("h,w,y0,fh", [(96, 128, 0, None), (31, 53, 40, 96)])
+def test_render_skybox(sky_scene, halfres, h, w, y0, fh):
+    factory, cfg = _CASES["skybox_full"]
+    r = tframe.FrameRenderer(factory(), cfg, device="cpu",
+                             backend="reference")
+    m = r.params_for_camera()["inv_vp_rot"]
+    cube = np.asarray(sky_scene["cubemap"])
+    tfn = tsky.render_skybox_halfres if halfres else tsky.render_skybox
+    jfn = jsky.render_skybox_halfres if halfres else jsky.render_skybox
+    a = tfn(_t(cube.view(np.int32)), _t(m), h, w, y0=y0,
+            full_height=fh).numpy()
+    b = np.asarray(jfn(jnp.asarray(cube), jnp.asarray(m), h, w, y0=y0,
+                       full_height=fh))
+    assert a.shape == (h, w, 4) and b[..., :3].std() > 0.01
+    _close_but_for(a.reshape(-1, 4), b.reshape(-1, 4), 2e-6)
+
+
+@pytest.mark.parametrize("max_tiles", [4, 10, 24])
+def test_shade_sparse_selection_equals_jax_on_ties(max_tiles):
+    """4 tile columns x 6 tile rows; several tiles of a row hold the same
+    number of covered pixels, so the per-row top-k must break ties to the
+    lowest tile index as ``jax.lax.top_k`` does."""
+    rng = np.random.default_rng(8)
+    h, w = 45, 500                        # partial last tile row and column
+    cov = np.zeros((h, w), bool)
+    for ty in range(6):
+        for tx in range(4):
+            n = [3, 7, 7, 7][(tx + ty) % 4] if ty != 2 else 5
+            blk = cov[ty * 8:ty * 8 + 8, tx * 128:tx * 128 + 100]
+            blk.reshape(-1)[:0] = False
+            idx = rng.choice(blk.size, size=min(n, blk.size), replace=False)
+            yy, xx = np.unravel_index(idx, blk.shape)
+            blk[yy, xx] = True
+    val = rng.uniform(0, 1, (h, w, 3)).astype(np.float32)
+
+    def shade_t(fr):
+        return torch.cat([fr["val"], fr["covered"][..., None].float()], -1)
+
+    def shade_j(fr):
+        return jnp.concatenate(
+            [fr["val"], fr["covered"][..., None].astype(jnp.float32)], -1)
+
+    a = tframe.shade_sparse(shade_t, {"covered": _t(cov), "val": _t(val)},
+                            h, w, 8, 128, max_tiles=max_tiles).numpy()
+    b = np.asarray(jframe.shade_sparse(
+        shade_j, {"covered": jnp.asarray(cov), "val": jnp.asarray(val)},
+        h, w, 8, 128, max_tiles=max_tiles))
+    np.testing.assert_array_equal(a, b)
+    assert 0 < (a[..., 3] > 0).sum() <= cov.sum()
+    if max_tiles == 24:
+        assert (a[..., 3] > 0).sum() == cov.sum()
+    else:
+        assert (a[..., 3] > 0).sum() < cov.sum()      # tiles were dropped
+
+
+def _lit_both(case, jfn, tfn, r, tst=None, jst=None, **kw):
+    """Shade a golden view's fragments with both packages on the port's
+    packed shadow maps (``r`` has rendered them); ``tst``/``jst`` collect
+    each package's penumbra counters."""
+    frag, jdev, sc, u, slots, cfg = case
+    ns = r.n_shadows
+    jp = junpack(jnp.asarray(u), ns)
+    tp = unpack_params(_t(u), ns)
+    keys = ("view_pos", "exposure", "debug_input", "debug_equation")
+    spec = cfg.aniso()
+    jmaps = tmaps = jtf = ttf = None
+    if ns:
+        tmaps, ttf = r._shadow_maps, tp["shadow_viewproj"]
+        jmaps = jshadow.ShadowPack(
+            jnp.asarray(tmaps.blocks.numpy().view(np.uint32)),
+            jnp.asarray(tmaps.coarse.numpy().view(np.uint32)))
+        jtf = jp["shadow_viewproj"]
+    a = tfn(sc, _t(frag["pos"]), _t(frag["uv"]), _t(frag["normal"]),
+            _t(frag["mat_id"]), {k: tp[k] for k in keys}, tmaps, ttf,
+            slots_used=slots, shadow_lights=r._shadow_lights, max_aniso=spec,
+            covered=_t(frag["covered"]), shadow_stats=tst, **kw).numpy()
+    b = np.asarray(jfn({k: jnp.asarray(v) for k, v in jdev.items()},
+                       jnp.asarray(frag["pos"]), jnp.asarray(frag["uv"]),
+                       jnp.asarray(frag["normal"]), jnp.asarray(frag["mat_id"]),
+                       {k: jp[k] for k in keys}, jmaps, jtf, slots_used=slots,
+                       shadow_lights=r._shadow_lights,
+                       max_aniso=jsmp.AnisoSpec(*spec),
+                       covered=jnp.asarray(frag["covered"]), shadow_stats=jst,
+                       **kw))
+    return a, b, frag["covered"]
+
+
+def _shadowed_case(shading=None):
+    factory, cfg = _CASES["shadows_pcf"]
+    if shading is not None:
+        cfg = cfg.replace(shading=shading)
+    r = tframe.FrameRenderer(factory(), cfg, device="cpu",
+                             backend="reference")
+    r.render()                            # fills the shadow-map cache
+    return r
+
+
+@pytest.mark.parametrize("penumbra_tiles", [0, 12])
+def test_shadowed_brdf_lighting(penumbra_tiles):
+    r = _shadowed_case()
+    jst, tst = [], []
+    case = _frag("shadows_pcf")
+    a, b, cov = _lit_both(case, jpbr.brdf_lighting, tpbr.brdf_lighting, r,
+                          tst, jst, penumbra_tiles=penumbra_tiles,
+                          penumbra_full_h=96)
+    _close_but_for(a[cov], b[cov], 2e-4, 2e-4)
+    # the shadows are there: the same fragments without maps come out brighter
+    frag, _, sc, u, slots, cfg = case
+    tp = unpack_params(_t(u), r.n_shadows)
+    keys = ("view_pos", "exposure", "debug_input", "debug_equation")
+    lit = tpbr.brdf_lighting(
+        sc, _t(frag["pos"]), _t(frag["uv"]), _t(frag["normal"]),
+        _t(frag["mat_id"]), {k: tp[k] for k in keys}, slots_used=slots,
+        max_aniso=cfg.aniso(), covered=_t(frag["covered"])).numpy()
+    darker = (a[cov][:, :3].sum(-1) < lit[cov][:, :3].sum(-1) - 1e-3).mean()
+    assert 0.05 < darker < 0.95
+    if penumbra_tiles:
+        # one (penumbra tiles, overflow) entry per shadow-casting light
+        assert len(tst) == len(jst) == 2
+        assert [[int(x) for x in s] for s in tst] == \
+            [[int(x) for x in s] for s in jst]
+
+
+def test_shadowed_phong_lighting():
+    from renderengine_tpu_torch.core.config import ShadingModel
+    r = _shadowed_case(ShadingModel.PHONG)
+    a, b, cov = _lit_both(_frag("shadows_pcf"), jphong.phong_lighting,
+                          tphong.phong_lighting, r)
+    _close_but_for(a[cov], b[cov], 2e-4, 2e-4)
+
+
+def test_ibl_diffuse_lighting():
+    factory, cfg = _CASES["ibl_diffuse"]
+    r = tframe.FrameRenderer(factory(), cfg, device="cpu",
+                             backend="reference")
+    case = _frag("ibl_diffuse")
+    a, b, cov = _lit_both(case, jpbr.brdf_lighting, tpbr.brdf_lighting, r,
+                          ibl_diffuse=True)
+    np.testing.assert_allclose(a[cov], b[cov], atol=2e-4, rtol=2e-4)
+    flat, _, _ = _lit_both(case, jpbr.brdf_lighting, tpbr.brdf_lighting, r)
+    assert np.abs(a[cov] - flat[cov]).max() > 1e-2     # the term is there
