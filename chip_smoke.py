@@ -4,18 +4,31 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds every kernel of the port's main path from the sources in the
-checkout, holds each kernel against its plain PyTorch version on the card
-(random triangles in every mode, then the three launch shapes of the main
-path at full size: the opaque 1080p pass, the sun's 4096^2 depth-only
-shadow pass, the dual-peel pass over the translucent list on the sparse
-grid), renders the seven golden configs at their bar, then drives the main
-path through the user entry point — ``FrameRenderer(scene,
-RenderConfig(width=1920, height=1080)).render()``, the default
-configuration (4096^2 shadow maps with 3x3 PCF, skybox, two depth-peeled
-translucent layers, PBR with 16x tiered anisotropic sampling) on the
-procedural Sponza (260k triangles, 200 textures of 512^2) — and checks its
-output; the opaque-only frame of the first slice is still driven once.
+It builds every kernel of the port's paths from the sources in the
+checkout (the tile raster K1 and the merged raster K2, both in
+``csrc/raster_tile.cu``, one ``nvcc``), holds each kernel against its plain PyTorch version on the card (random
+triangles in every mode, then every launch shape of the paths at full
+size: the opaque 1080p pass, the sun's 4096^2 depth-only shadow pass, the
+dual-peel pass over the translucent list; K1 at 4 attributes and K2 at the
+texture-space 1080p launch), renders the seven golden configs at their
+bar, and drives two paths through the user entry point on the procedural
+Sponza (260k triangles, 200 textures of 512^2), checking their output:
+
+- the per-pixel path: ``FrameRenderer(scene, RenderConfig(width=1920,
+  height=1080)).render()``, the default configuration (4096^2 shadow maps
+  with 3x3 PCF, skybox, two depth-peeled translucent layers, PBR with 16x
+  tiered anisotropic sampling); the opaque-only frame of the first slice
+  is still driven once;
+- the texture-space path: the JAX package's headline configuration
+  (``texture_space``, ``tss_preshaded_blend``, ``dither_trilinear``,
+  ``sky_halfres``; charts at density 0.5 within 2M texels), where one K2
+  launch a frame rasters the opaque pass and both translucent layers;
+  the same frame through separate K1 launches (a test hook, uncounted);
+  then one frame each of factored texture-space shading (4 translucent
+  layers: K2 and a K1 dual peel), fully pre-shaded shading and shading
+  without translucency (where K1 at 4 attributes rasters the opaque pass).
+  Each of these frames is rendered again through the plain versions and
+  must come out identical.
 Each phase is fatal: any failure exits non-zero without the final line.
 Before the last line it prints the card's name and power limit (as
 ``nvidia-smi`` reports them), one JSON line of per-kernel numbers and one
@@ -23,11 +36,18 @@ of timings; the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
-Numbers: kernel times are medians of CUDA-event-timed launches at the main
-path's shapes, plain-version times one CUDA-event-timed run; ``bound_ms``
-is the larger of (bytes moved / 3.35 TB/s) and (operations / 67 TFLOP/s
-FP32), counted from this run's inputs; frame times are host clock around
-``render()`` followed by a synchronize.
+Numbers: kernel times are medians of CUDA-event-timed launches at the
+paths' launch shapes, plain-version times one CUDA-event-timed run;
+``bound_ms`` is the larger of (bytes moved / 3.35 TB/s) and (operations /
+67 TFLOP/s FP32), counted from this run's inputs; the texture-space bakes
+and the specular chart pass are CUDA-event-timed calls (host dispatch
+included); frame times are host clock around ``render()`` followed by a
+synchronize. The launch counts are set to 0 just before each path is
+driven and read just after; each kernel row's ``launches`` is that of
+the path whose launch shape it was timed at (K2 at 2 blend attributes:
+the headline frames; K2 at 4 and K1's texture-space dual peel: the
+factored frame; K1's texture-space opaque pass: the frame without
+translucency).
 """
 
 from __future__ import annotations
@@ -50,6 +70,8 @@ SPONZA_W, SPONZA_H = 1920, 1080
 N_FRAMES = 3
 SOURCE = "renderengine_tpu_torch/csrc/raster_tile.cu"
 REPLACES = "renderengine_tpu/raster/pallas_raster.py:122"
+K2_REPLACES = "renderengine_tpu/raster/pallas_raster.py:419"
+TSS_FRAMES = 3
 
 
 def log(msg: str) -> None:
@@ -113,6 +135,61 @@ def k1_plain_check(cr, prep, ntx, width, height, label, bounds=None,
     return err, stats, t0.elapsed_time(t1)
 
 
+def k2_check(cr, pa, pb, ntx, width, height, nab, label):
+    """K2 against its plain version on the card, and against K1's opaque
+    launch followed by K1's dual launch with peel bounds (-1, opaque
+    depth) over the same tables: all bit-exact. Returns (max abs error,
+    the plain run's stats, the plain run's ms)."""
+    tabs = (pa.pair_data, pa.bins.starts, pa.bins.counts, pb.pair_data,
+            pb.bins.starts, pb.bins.counts, ntx, width, height, 0, nab)
+    kern = cr.merged_tiles(*tabs)
+    stats = {}
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    plain = cr._merged_tiles_plain(*tabs, stats=stats)
+    t1.record()
+    torch.cuda.synchronize()
+    # the separate launches: opaque, then the bounded dual peel (bounds in
+    # tile order, so partial tiles' outside pixels see the same cap)
+    opq = cr.raster_tiles(pa.pair_data, pa.bins.starts, pa.bins.counts,
+                          ntx, width, height, 0, 4)
+    bounds = torch.stack([torch.full_like(opq[:, 0], -1.0), opq[:, 0]],
+                         1).contiguous()
+    dual = cr.raster_tiles(pb.pair_data, pb.bins.starts, pb.bins.counts,
+                           ntx, width, height, 0, 4, bounds, None, True)
+    pl = 3 + nab
+    sep = torch.cat([opq, dual[:, :pl], dual[:, 7:7 + pl]], 1)
+    err = max(max_abs_err(kern, plain), max_abs_err(kern, sep))
+    exact = torch.equal(kern, plain) and torch.equal(kern, sep)
+    log(f"  K2 vs plain and vs K1 opaque + K1 bounded dual [{label}]: "
+        f"exact={exact}, max_abs_err={err!r}")
+    if not exact:
+        raise AssertionError(f"K2 disagrees ({label})")
+    return err, stats, t0.elapsed_time(t1)
+
+
+def k2_bound(pairs_a, pairs_b, n_tiles, nab, wins_a, wins_b, demotes):
+    """The least time the card could take for one K2 launch, from this
+    run's counts: (ms, by, operations, bytes). Bytes: every pair row of
+    both tables read once (32 floats), both tables' starts/counts once,
+    the 7 + 2 * (3 + nab) output planes written once. Operations: K1's
+    count for a single walk over table A (4 attributes) plus a dual walk
+    over table B (nab attributes), and the fold's two cap compares and
+    selects per pixel."""
+    bytes_moved = ((pairs_a + pairs_b) * 32 * 4 + 4 * 4 * n_tiles
+                   + (7 + 2 * (3 + nab)) * 4 * n_tiles * 256)
+    carried_a, carried_b = 4 + 4, 4 + nab
+    ops = (pairs_a * 256 * 31 + wins_a * (4 * 4 + 2 + carried_a)
+           + pairs_b * 256 * 33 + wins_b * (4 * nab + 2 + carried_b)
+           + demotes * carried_b
+           + n_tiles * 256 * ((3 + 4) + 2 * (3 + nab) + 4))
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_bytes, t_ops), by, ops, bytes_moved
+
+
 def k1_bound(pairs, n_slots, cpp, n_attrs, wins, demotes=0, peel=False,
              dual=False, sparse=False):
     """The least time the card could take for one K1 launch, from this
@@ -174,13 +251,13 @@ def main() -> None:
         from renderengine_tpu_torch.raster.setup import triangle_setup
         from renderengine_tpu_torch.scene import procedural
         from renderengine_tpu_torch.tools import goldens
+        from renderengine_tpu_torch.shading import lightchart
         t0 = time.time()
         so = cr.build()
-        ptxas = [ln.strip() for ln in so.with_suffix(".log").read_text()
-                 .splitlines() if "registers" in ln or "spill" in ln]
         log(f"phase build: {so.name} in {time.time() - t0:.1f} s")
-        for ln in ptxas:
-            log(f"  ptxas: {ln}")
+        for ln in so.with_suffix(".log").read_text().splitlines():
+            if "registers" in ln or "spill" in ln:
+                log(f"  ptxas: {ln.strip()}")
     except Exception as e:  # noqa: BLE001 — every phase is fatal
         fail(phase, e)
 
@@ -192,7 +269,8 @@ def main() -> None:
     # phase 2: K1 against its plain version on random triangles, in every
     # mode: single winner, peel, dual, each on the dense and a sparse grid
     phase = "k1-random"
-    max_err = {"opaque": 0.0, "shadow": 0.0, "peel2": 0.0}
+    max_err = {"opaque": 0.0, "shadow": 0.0, "peel2": 0.0, "tss": 0.0,
+               "tss_peel2": 0.0, "k2_2": 0.0, "k2_4": 0.0}
     try:
         rng = np.random.default_rng(0)
         for (w, h, cull, n) in ((64, 48, 0, 16), (53, 37, 1, 12),
@@ -208,12 +286,12 @@ def main() -> None:
             s = triangle_setup(torch.from_numpy(clip.reshape(-1, 4)).to(dev),
                                torch.from_numpy(vidx).to(dev), n, w, h, cull)
             ntx, nty = -(-w // cr.TILE_W), -(-h // cr.TILE_H)
-            for n_attrs in (0, 8):
+            for n_attrs in (0, 4, 8):
                 ap = None
                 if n_attrs:
                     ap = cr.attribute_planes(s, torch.from_numpy(
-                        rng.uniform(-5, 5, (n, 3, 8)).astype(np.float32)
-                    ).to(dev))
+                        rng.uniform(-5, 5, (n, 3, n_attrs)).astype(
+                            np.float32)).to(dev))
                 prep = cr.prepare_pairs(
                     s, h, w, max_pairs=8192, attr_planes=ap,
                     tri_mat=torch.arange(n, device=dev, dtype=torch.int32) % 5)
@@ -239,7 +317,45 @@ def main() -> None:
                             bounds, tile_map, dual)
                         key = ("peel2" if dual else
                                "opaque" if n_attrs else "shadow")
+                        if n_attrs == 4:
+                            key = "tss_peel2" if dual else "tss"
                         max_err[key] = max(max_err[key], err)
+    except Exception as e:  # noqa: BLE001
+        fail(phase, e)
+
+    # phase 2b: K2 against its plain version and against the separate K1
+    # launches on random triangles: an opaque and a translucent table of 4
+    # attributes, 2 or 4 blend attributes
+    phase = "k2-random"
+    try:
+        rng = np.random.default_rng(1)
+        for (w, h, cull, n) in ((64, 48, 1, 16), (53, 37, 0, 24),
+                                (97, 61, 1, 60)):
+            preps = []
+            for c in (cull, 0):
+                scale = rng.uniform(0.05, 1.0, (n, 1, 1)).astype(np.float32)
+                center = rng.uniform(-1.1, 1.1, (n, 1, 2)).astype(np.float32)
+                tri = center + scale * rng.uniform(-1, 1, (n, 3, 2)).astype(
+                    np.float32)
+                z = rng.uniform(0.05, 0.95, (n, 3)).astype(np.float32)
+                clip = np.concatenate([tri, z[..., None],
+                                       np.ones((n, 3, 1), np.float32)], -1)
+                vidx = np.arange(3 * n, dtype=np.int32).reshape(n, 3)
+                s = triangle_setup(
+                    torch.from_numpy(clip.reshape(-1, 4)).to(dev),
+                    torch.from_numpy(vidx).to(dev), n, w, h, c)
+                ap = cr.attribute_planes(s, torch.from_numpy(
+                    rng.uniform(-5, 5, (n, 3, 4)).astype(np.float32)).to(dev))
+                preps.append(cr.prepare_pairs(
+                    s, h, w, max_pairs=8192, attr_planes=ap,
+                    tri_mat=torch.arange(n, device=dev,
+                                         dtype=torch.int32) % 7))
+            for nab in (2, 4):
+                err, _, _ = k2_check(cr, preps[0], preps[1],
+                                     -(-w // cr.TILE_W), w, h, nab,
+                                     f"random {w}x{h} cull={cull} "
+                                     f"n_attrs_b={nab}")
+                max_err[f"k2_{nab}"] = max(max_err[f"k2_{nab}"], err)
     except Exception as e:  # noqa: BLE001
         fail(phase, e)
 
@@ -542,11 +658,269 @@ def main() -> None:
     except Exception as e:  # noqa: BLE001
         fail(phase, e)
 
-    def row(name, launches, err, ms, plain, bound, by):
-        return {"name": name, "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES, "launches": launches,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                "bound_ms": bound, "bound_by": by, "library_ms": None}
+    # the texture-space path: the JAX package's headline configuration
+    del renderer
+    torch.cuda.empty_cache()
+    phase = "tss-renderer"
+    try:
+        tss_cfg = RenderConfig(width=SPONZA_W, height=SPONZA_H,
+                               debug_views=False, texture_space=True,
+                               tss_preshaded_blend=True,
+                               dither_trilinear=True, sky_halfres=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        tss_r = fr.FrameRenderer(scene, tss_cfg)
+        torch.cuda.synchronize()
+        tss_init_s = time.time() - t0
+        tcfg = tss_r.config
+        tsd = tss_r.scene_dev
+        c_ah, c_aw = tsd["chart_tri"].shape
+        n_texels = int((tsd["chart_tri"] >= 0).sum())
+        tss_tris = int(tsd["n_tris"])
+        # the upload bake again, timed alone on the card
+        bake_ms = cuda_ms(lambda: lightchart.setup_scene_tss(
+            tsd, tcfg, tss_r._slots_used, tss_r._baked_exposure,
+            tss_r._alpha_is_factor), 2)
+        log(f"phase tss-renderer: set up in {tss_init_s:.1f} s (chart "
+            f"subdivision, layout, bake): {tss_tris} triangles after "
+            f"subdivision, atlas {c_ah}x{c_aw} with {n_texels} live texels,"
+            f" upload bake {bake_ms:.2f} ms on the card, alpha is factor "
+            f"{tss_r._alpha_is_factor}; pair budget "
+            f"{tcfg.raster.pair_budget}, blend pair budget "
+            f"{tcfg.blend_pair_budget}, blend tile budget "
+            f"{tcfg.blend_tile_budget}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        tu = torch.from_numpy(tss_r.uniform_for_camera()).to(dev)
+        tparams = fr.unpack_params(tu, tss_r.n_shadows)
+    except Exception as e:  # noqa: BLE001
+        fail(phase, e)
+
+    # phase: K1 at 4 attributes, the TSS opaque pass at 1080p
+    phase = "k1-tss"
+    try:
+        setup_a = fr.opaque_setup(tsd, tparams, tcfg)
+        prep_a = fr.opaque_pairs(tsd, setup_a, tcfg)
+        ba = prep_a.bins
+        if int(ba.n_overflow) or int(ba.n_tail):
+            raise AssertionError("TSS opaque pair overflow")
+        err, st_a, ta_plain_ms = k1_plain_check(
+            cr, prep_a, ntx, SPONZA_W, SPONZA_H, "sponza 1080p tss opaque")
+        max_err["tss"] = max(max_err["tss"], err)
+        pairs_a = int(ba.counts.sum())
+        ta_args = (prep_a.pair_data, ba.starts, ba.counts, ntx, SPONZA_W,
+                   SPONZA_H, 0, 4)
+        ta_ms = cuda_ms(lambda: cr.raster_tiles(*ta_args), 30)
+        ta_bound, ta_by, ta_ops, ta_bytes = k1_bound(
+            pairs_a, n_tiles, prep_a.pair_data.shape[1], 4, st_a["wins"])
+        log(f"phase k1-tss: {pairs_a} pairs over {n_tiles} tiles (max "
+            f"{int(ba.counts.max())}/tile), {st_a['wins']} depth wins; K1 "
+            f"{ta_ms:.4f} ms, plain {ta_plain_ms:.2f} ms, bound "
+            f"{ta_bound:.4f} ms ({ta_by}: {ta_ops:.3e} ops, {ta_bytes:.3e} "
+            f"B)")
+    except Exception as e:  # noqa: BLE001
+        fail(phase, e)
+
+    # phase: the headline K2 launch at 1080p — K2 vs plain and vs the
+    # separate K1 launches, timings; then the K1 dual peel it replaces
+    phase = "k2-sponza"
+    try:
+        setup_b = fr.blend_setup(tsd, tparams, tcfg)
+        prep_b = fr.blend_pairs(tsd, setup_b, tcfg)
+        bb = prep_b.bins
+        if int(bb.n_overflow) or int(bb.n_tail):
+            raise AssertionError("TSS blend pair overflow")
+        pairs_b = int(bb.counts.sum())
+        k2 = {}
+        for nab in (2, 4):
+            err, st_k2, k2_plain_ms = k2_check(
+                cr, prep_a, prep_b, ntx, SPONZA_W, SPONZA_H, nab,
+                f"sponza 1080p headline, n_attrs_b={nab}")
+            max_err[f"k2_{nab}"] = max(max_err[f"k2_{nab}"], err)
+            k2_args = (prep_a.pair_data, ba.starts, ba.counts,
+                       prep_b.pair_data, bb.starts, bb.counts, ntx,
+                       SPONZA_W, SPONZA_H, 0, nab)
+            k2_ms = cuda_ms(lambda: cr.merged_tiles(*k2_args), 30)
+            bound = k2_bound(pairs_a, pairs_b, n_tiles, nab, st_k2["wins"],
+                             st_k2["wins_b"], st_k2["demotes"])
+            k2[nab] = {"ms": k2_ms, "plain_ms": k2_plain_ms,
+                       "bound_ms": bound[0], "bound_by": bound[1],
+                       "ops": bound[2], "bytes": bound[3],
+                       "wins_a": st_k2["wins"], "wins_b": st_k2["wins_b"],
+                       "demotes": st_k2["demotes"]}
+            log(f"phase k2-sponza: n_attrs_b={nab}: {pairs_a} + {pairs_b} "
+                f"pairs over {n_tiles} tiles (blend max "
+                f"{int(bb.counts.max())}/tile, {int((bb.counts > 0).sum())} "
+                f"covered tiles); K2 {k2_ms:.4f} ms, plain "
+                f"{k2_plain_ms:.2f} ms, bound {bound[0]:.4f} ms ({bound[1]}"
+                f": {bound[2]:.3e} ops, {bound[3]:.3e} B)")
+        # the K1 dual peel at 4 attributes that K2 folds in (bounds: -1 and
+        # the opaque depth), against its plain version, timed
+        opq = cr.raster_tiles(*ta_args)
+        tb_bounds = torch.stack([torch.full_like(opq[:, 0], -1.0),
+                                 opq[:, 0]], 1).contiguous()
+        err, st_tp, tp_plain_ms = k1_plain_check(
+            cr, prep_b, ntx, SPONZA_W, SPONZA_H, "sponza 1080p tss dual peel",
+            tb_bounds, None, True)
+        max_err["tss_peel2"] = max(max_err["tss_peel2"], err)
+        tp_args = (prep_b.pair_data, bb.starts, bb.counts, ntx, SPONZA_W,
+                   SPONZA_H, 0, 4, tb_bounds, None, True)
+        tp_ms = cuda_ms(lambda: cr.raster_tiles(*tp_args), 30)
+        tp_bound, tp_by, tp_ops, tp_bytes = k1_bound(
+            pairs_b, n_tiles, 32, 4, st_tp["wins"], st_tp["demotes"],
+            peel=True, dual=True)
+        log(f"phase k2-sponza: the K1 launches K2 replaces: opaque "
+            f"{ta_ms:.4f} ms + dual peel {tp_ms:.4f} ms (plain "
+            f"{tp_plain_ms:.2f} ms, bound {tp_bound:.4f} ms {tp_by})")
+        # the per-frame specular chart pass, timed alone on the card
+        spec_ms = cuda_ms(lambda: lightchart.chart_light_spec(
+            tsd, tsd["chart_pos"], tsd["chart_normal"], tsd["chart_mat"],
+            tsd["chart_vis"], {"view_pos": tparams["view_pos"],
+                               "exposure": tparams["exposure"]}), 10)
+        del prep_a, prep_b, opq, tb_bounds
+    except Exception as e:  # noqa: BLE001
+        fail(phase, e)
+
+    # phase: the texture-space paths, each counted on its own: the headline
+    # frame x TSS_FRAMES; then one frame each of factored shading (4
+    # translucent layers: K2 + a K1 dual peel), fully pre-shaded shading and
+    # shading without translucency (K1 at 4 attributes, no K2). Every one
+    # is rendered again through the plain versions, and the headline frame
+    # through separate K1 launches (uncounted): all identical
+    phase = "tss-path"
+    try:
+        k2_v2, k2_v4 = ("merged", 2), ("merged", 4)
+        k1_tss_v, k1_tss_peel_v = (4, False, False), (4, True, True)
+        tss_variants = (k2_v2, k2_v4, k1_tss_v, k1_tss_peel_v, shadow_v)
+
+        def path_counts():
+            return {v: cr.variant_counts[v] for v in tss_variants}
+
+        def plain_frame(r):
+            with mock.patch.object(cr, "raster_tiles",
+                                   cr._raster_tiles_plain), \
+                    mock.patch.object(cr, "merged_tiles",
+                                      cr._merged_tiles_plain):
+                return r.render()[0]
+
+        reset_counts()
+        tss_ms, tss_per_frame, tss_stats = [], [], []
+        for _ in range(TSS_FRAMES):
+            before = dict(cr.variant_counts)
+            t0 = time.perf_counter()
+            timg, tst = tss_r.render()
+            torch.cuda.synchronize()
+            tss_ms.append((time.perf_counter() - t0) * 1e3)
+            tss_per_frame.append({str(v): cr.variant_counts[v]
+                                  - before.get(v, 0) for v in tss_variants
+                                  if cr.variant_counts[v] - before.get(v, 0)})
+            tss_stats.append({k: v.tolist() for k, v in tst.items()})
+        path_launches = {"headline": path_counts()}
+        vis_ms = cuda_ms(lambda: (lightchart.bake_visibility(
+            tsd, {"pos": tsd["chart_pos"], "normal": tsd["chart_normal"],
+                  "mat_id": tsd["chart_mat"][15]}, tss_r._shadow_maps,
+            tparams["shadow_viewproj"], tss_r._shadow_lights),
+            lightchart.static_tables(tsd, tcfg, tss_r._baked_exposure)), 2)
+        log(f"phase tss-path: frame ms {tss_ms}, launches {tss_per_frame}; "
+            f"specular chart pass {spec_ms:.3f} ms, visibility bake + static"
+            f" tables {vis_ms:.2f} ms on the card; counters {tss_stats}; "
+            f"shadow overflow {tss_r.shadow_overflow}")
+        for i, pf in enumerate(tss_per_frame):
+            want = {str(k2_v2): 1}
+            if i == 0:
+                want[str(shadow_v)] = tss_r.n_shadows
+            if pf != want:
+                raise AssertionError(f"TSS frame {i}: launches {pf}, "
+                                     f"expected {want}")
+        for i, st in enumerate(tss_stats[1:], 1):
+            over = {k: v for k, v in st.items() if "overflow" in k}
+            if any(over.values()) or tss_r.shadow_overflow:
+                raise AssertionError(f"TSS frame {i}: overflow {over}")
+        timg_np = timg.cpu().numpy()
+        if timg_np.shape != (SPONZA_H, SPONZA_W, 4) or \
+                timg_np.dtype != np.uint8:
+            raise AssertionError(f"bad TSS image {timg_np.shape}")
+        lit = float((timg_np[..., :3].max(-1) > 0).mean())
+        # against the per-pixel default frame of the same view: lighting
+        # lives at chart resolution, the sky is upsampled and mips dither
+        d = np.abs(timg_np[..., :3].astype(np.int32)
+                   - img_np[..., :3].astype(np.int32)).max(-1)
+        vs_pp = {"mean": float(d.mean()), "within_16": float((d <= 16).mean()),
+                 "within_32": float((d <= 32).mean())}
+        log(f"phase tss-path: {lit:.4f} of the pixels lit; against the "
+            f"per-pixel default frame: {vs_pp}")
+        if lit < 0.9 or vs_pp["mean"] > 20.0 or vs_pp["within_32"] < 0.8:
+            raise AssertionError("the TSS frame is far from the per-pixel "
+                                 "frame")
+        # the same frame with K2 replaced by K1's opaque + dual launches:
+        # identical, byte for byte
+        fr._FORCE_UNMERGED = True
+        try:
+            unm, _ = tss_r.render()
+        finally:
+            fr._FORCE_UNMERGED = False
+        same = torch.equal(unm, timg)
+        log(f"phase tss-path: through separate K1 launches identical: {same}")
+        if not same:
+            raise AssertionError("the merged and unmerged frames differ")
+        same = torch.equal(plain_frame(tss_r), timg)
+        log(f"phase tss-path: through the plain versions identical: {same}")
+        if not same:
+            raise AssertionError("the kernel frame differs from the plain one")
+        del tss_r, tsd, unm
+        torch.cuda.empty_cache()
+        modes = {}
+        for mode, extra, want in (
+                ("factored", dict(tss_preshaded_blend=False,
+                                  translucency_layers=4),
+                 {k2_v4: 1, k1_tss_peel_v: 1}),
+                ("preshaded", dict(tss_preshaded_blend=False,
+                                   tss_preshaded=True), {k2_v2: 1}),
+                ("no_translucency", dict(translucency=False),
+                 {k1_tss_v: 1})):
+            r = fr.FrameRenderer(scene, tss_cfg.replace(**extra))
+            reset_counts()
+            t0 = time.perf_counter()
+            mimg, mst = r.render()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            path_launches[mode] = path_counts()
+            got = {str(v): n for v, n in path_launches[mode].items() if n}
+            want = {str(v): n for v, n in want.items()}
+            want[str(shadow_v)] = r.n_shadows
+            # a second frame through the kernels (the shadow maps are now
+            # cached), then the same through the plain versions
+            kimg, _ = r.render()
+            same = torch.equal(plain_frame(r), kimg)
+            m_np = mimg.cpu().numpy()
+            dm = np.abs(m_np[..., :3].astype(np.int32)
+                        - timg_np[..., :3].astype(np.int32)).max(-1)
+            modes[mode] = {"frame_ms": ms, "launches": got,
+                           "vs_headline_mean": float(dm.mean()),
+                           "lit": float((m_np[..., :3].max(-1) > 0).mean()),
+                           "plain_identical": same,
+                           "counters": {k: v.tolist()
+                                        for k, v in mst.items()}}
+            log(f"phase tss-path: {mode}: {modes[mode]}")
+            if got != want or modes[mode]["lit"] < 0.9:
+                raise AssertionError(f"{mode}: launches {got}, expected "
+                                     f"{want}")
+            if not same:
+                raise AssertionError(f"{mode}: the kernel frame differs from"
+                                     f" the plain one")
+            del r, mimg, kimg
+            torch.cuda.empty_cache()
+        log(f"phase tss-path: launches by path {path_launches}")
+    except Exception as e:  # noqa: BLE001
+        fail(phase, e)
+
+    def row(name, launches, err, ms, plain, bound, by, k2=False):
+        return {"name": name, "route": "cuda",
+                "source": SOURCE,
+                "replaces": K2_REPLACES if k2 else REPLACES,
+                "launches": launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                "library_ms": None}
 
     kernels = [
         row("raster_tile", launches[opaque_v], max_err["opaque"], k1_ms,
@@ -555,6 +929,18 @@ def main() -> None:
             sh_ms, sh_plain_ms, sh_bound_ms, sh_bound_by),
         row("raster_tile_peel2", launches[peel_v], max_err["peel2"], pl_ms,
             pl_plain_ms, pl_bound_ms, pl_bound_by),
+        row("raster_tile_tss", path_launches["no_translucency"][k1_tss_v],
+            max_err["tss"], ta_ms, ta_plain_ms, ta_bound, ta_by),
+        row("raster_tile_tss_peel2",
+            path_launches["factored"][k1_tss_peel_v], max_err["tss_peel2"],
+            tp_ms, tp_plain_ms, tp_bound, tp_by),
+        row("merged_tile", path_launches["headline"][k2_v2], max_err["k2_2"],
+            k2[2]["ms"], k2[2]["plain_ms"], k2[2]["bound_ms"],
+            k2[2]["bound_by"], k2=True),
+        row("merged_tile_b4", path_launches["factored"][k2_v4],
+            max_err["k2_4"],
+            k2[4]["ms"], k2[4]["plain_ms"], k2[4]["bound_ms"],
+            k2[4]["bound_by"], k2=True),
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -583,6 +969,22 @@ def main() -> None:
         "sky_share": sky_share,
         "penumbra_tile_budget": rcfg.penumbra_tile_budget,
         "blend_tile_budget": rcfg.blend_tile_budget, "scene_tris": n_tris, "textures": n_tex,
+        "tss": {"frame_ms": tss_ms, "launches_per_frame": tss_per_frame,
+                "counters": tss_stats, "init_s": tss_init_s,
+                "upload_bake_ms": bake_ms, "visibility_bake_ms": vis_ms,
+                "spec_pass_ms": spec_ms, "tris": tss_tris,
+                "atlas": [c_ah, c_aw], "live_texels": n_texels,
+                "pairs_opaque": pairs_a, "pairs_blend": pairs_b,
+                "k1_opaque": {"ms": ta_ms, "plain_ms": ta_plain_ms,
+                              "bound_ms": ta_bound, "bound_by": ta_by,
+                              "depth_wins": st_a["wins"], "ops": ta_ops,
+                              "bytes": ta_bytes},
+                "k1_dual_peel": {"ms": tp_ms, "plain_ms": tp_plain_ms,
+                                 "bound_ms": tp_bound, "bound_by": tp_by},
+                "k2": k2, "vs_per_pixel": vs_pp, "modes": modes,
+                "launches_by_path": {
+                    path: {str(k): v for k, v in c.items()}
+                    for path, c in path_launches.items()}},
         "width": SPONZA_W, "height": SPONZA_H, "card": card,
         "wall_s": time.time() - t_start}}), flush=True)
     print(json.dumps({"ok": True, "device": {

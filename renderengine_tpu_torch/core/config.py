@@ -5,9 +5,9 @@ viewport, blend, depth test/write) plus the raster tiling knobs.
 The JAX package's ``core/config.py`` trimmed to the fields this package
 reads, with the same names, defaults and meaning, so one configuration
 means the same frame in both packages. The switches of features it does
-not render yet stay (``grid``, ``show_shadow_quad``, texture-space
-shading), and ``graph.frame.FrameRenderer`` refuses a config that turns
-one on; their tuning fields come with the slices that port them.
+not render yet stay (``grid``, ``show_shadow_quad``), and
+``graph.frame.FrameRenderer`` refuses a config that turns one on; their
+tuning fields come with the slices that port them.
 """
 
 from __future__ import annotations
@@ -89,6 +89,9 @@ class RenderConfig:
     ibl_diffuse: bool = False  # consume the captured environment map as a diffuse irradiance term (replaces the flat 0.03 ambient) — one step beyond the reference's pbr.glsl:442 todo
     alpha_mask: bool = False  # glTF-correct MASK cutoff test (discard alpha<cutoff) via a peeled cutoff pass; False = MASK draws opaque (the reference's live-path behavior)
     texture_space: bool = False  # light-chart (texture-space) shading: lighting runs per chart texel (shading/lightchart.py), screen pass = 1 albedo tap + 1 light gather. Static scenes; lighting detail at chart resolution. False = reference-exact per-pixel path
+    chart_density: float = 0.5   # chart texels per screen pixel (one axis) at the layout camera
+    chart_budget: int = 2_000_000  # total chart texel cap (atlas size / gather-table price)
+    tss_halfres_light: int = -1  # dense-pass half-res light sampling: -1 = auto (on when chart_density <= 0.5 — lighting varies at >= 2 px scale there anyway), 0 = off, 1 = on
     dither_trilinear: bool = False  # one gather per texture tap: the mip fraction ordered-dithers (4x4 Bayer) the level choice instead of blending two bilinear fetches — halves atlas gather cost for ~1/2-mip-step spatial noise on mip gradients (the 'dithered trilinear' of shipping rasterizers). False = reference-exact trilinear
     sky_halfres: bool = False  # sample the skybox on the even-pixel half grid + bilinear upsample (the sky is magnified many screen pixels per cube texel). False = reference-exact per-pixel sample
     tss_preshaded: bool = False  # fully pre-shaded charts: albedo is baked at chart resolution and rgb = albedo*ld + ls composes IN CHART SPACE, so every screen pass costs ONE 16-byte rgb9e5-block gather per pixel (translucent passes add one 4-byte alpha-block gather). Texture detail then lives at chart_density — run with chart_density 1.0 / a larger chart_budget for parity-grade detail. Requires texture_space

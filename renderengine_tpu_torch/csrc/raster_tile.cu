@@ -1,10 +1,12 @@
-// Tile raster kernel (K1) for Hopper: one thread block per 8x32-pixel
-// tile, one thread per pixel.
+// Tile raster kernels for Hopper, K1 and K2: one thread block per
+// 8x32-pixel tile, one thread per pixel. Both run the same per-pixel walk
+// (walk() below), so they share one set of rounding rules.
 //
 // Replaces renderengine_tpu/raster/pallas_raster.py::_raster_kernel: single
 // winner or the two nearest layers (dual), optional per-pixel peel bounds,
-// dense or sparse tile grid, n_attrs 0 and 8. For each tile the block walks
-// the tile's binned (tile, triangle) pairs from the packed pair table,
+// dense or sparse tile grid, n_attrs 0, 4 (texture-space) and 8. For each
+// tile the block walks the tile's binned (tile, triangle) pairs from the
+// packed pair table,
 // evaluates three edge planes plus the z and w numerator planes at every
 // pixel centre, and keeps the nearest covered fragment:
 //
@@ -65,6 +67,31 @@
 // -fmad=false; the __fmul_rn/__fadd_rn intrinsics below also forbid
 // contraction, so every plane rounds as (a*px + b*py) + c, matching the
 // plain PyTorch version bit for bit.
+//
+// K2, the merged launch (merged_tile_kernel), replaces
+// renderengine_tpu/raster/pallas_raster.py::_merged_kernel (launched by
+// rasterize_pallas_merged): the texture-space opaque pass and its two
+// nearest translucent layers in ONE tile walk over two pair tables, each of
+// K1's row layout at n_attrs 4 (cpp = 32):
+//
+//   stream A (the opaque list): K1's single winner over the tile's span,
+//     4 attributes;
+//   stream B (the translucent list): K1's dual tracker with NO depth
+//     bounds, interpolating only the first N_ATTRS_B (2 or 4) attributes;
+//   the fold: each blend layer deeper than stream A's winning depth (1.0
+//     where nothing opaque was drawn) is voided: depth 1, tri -1, material
+//     and attributes 0, as an empty layer.
+//
+// The fold makes the result equal K1's opaque launch followed by K1's dual
+// launch with peel bounds (-1, opaque depth): an occluded blend fragment is
+// deeper than every visible one, so it can hold a tracker slot only while
+// fewer than two visible fragments exist, and the cap then voids it. A tile
+// without blend pairs writes the two empty layers without walking. Output:
+// [n_tiles, (3 + 4) + 2 * (3 + N_ATTRS_B), 256] f32 planes: the opaque
+// layer, then blend layers 1 and 2. Like K1 it is bound by bytes and held
+// far above that bound by the serial walk of the densest tile. The TPU
+// kernel's DMA rings, tiles-per-program and program-level skip of stream B
+// are TPU tuning and are left out.
 
 #include <cuda_runtime.h>
 
@@ -121,40 +148,19 @@ struct Layer {
   }
 };
 
-template <int N_ATTRS, bool PEEL, bool DUAL>
-__global__ void __launch_bounds__(kThreads)
-raster_tile_kernel(const float* __restrict__ pairs,
-                   const int* __restrict__ starts,
-                   const int* __restrict__ counts,
-                   const int* __restrict__ tile_map,
-                   const float* __restrict__ bounds,
-                   float* __restrict__ out, int ntx, int width,
-                   int full_height, int y0) {
+// Walk one tile's span [start, start + count) of a pair table whose rows
+// carry N_ATTRS attribute planes; l1 (and with DUAL l2) take the winners.
+// PEEL applies the per-pixel bounds prev < depth <= zmax. The layers
+// interpolate their first N_NUM attributes (the two barycentric
+// numerators at N_ATTRS 0).
+template <int N_ATTRS, bool PEEL, bool DUAL, int N_NUM>
+__device__ __forceinline__ void walk(const float* __restrict__ pairs,
+                                     int start, int count, float px,
+                                     float py, float prev, float zmax,
+                                     float* rows, Layer<N_NUM>& l1,
+                                     Layer<N_NUM>& l2) {
   constexpr int kCols = 20 + 3 * N_ATTRS;
-  constexpr int kNum = N_ATTRS > 0 ? N_ATTRS : 2;
-  constexpr int kLayers = DUAL ? 2 : 1;
-  __shared__ float rows[kChunk * kMaxCols];
-
-  const int slot = blockIdx.x;
-  const int tile = tile_map != nullptr ? tile_map[slot] : slot;
   const int lane = threadIdx.x;
-  const int start = starts[tile];
-  const int count = counts[tile];
-  const int org_x = (tile % ntx) * kTileW;
-  const int org_y = (tile / ntx) * kTileH + y0;
-  const float px = __fadd_rn((float)(org_x + lane % kTileW),
-                             0.5f - (float)width * 0.5f);
-  const float py = __fadd_rn((float)(org_y + lane / kTileW),
-                             0.5f - (float)full_height * 0.5f);
-  float prev = 0.0f, zmax = 0.0f;
-  if (PEEL) {
-    const float* b = bounds + (size_t)tile * 2 * kThreads + lane;
-    prev = b[0];
-    zmax = b[kThreads];
-  }
-
-  Layer<kNum> l1, l2;
-
   for (int base = 0; base < count; base += kChunk) {
     const int n = min(kChunk, count - base);
     const float* src = pairs + (size_t)(start + base) * kCols;
@@ -184,10 +190,92 @@ raster_tile_kernel(const float* __restrict__ pairs,
       }
     }
   }
+}
+
+// The pixel centre of this thread in the viewport's centred coordinates.
+__device__ __forceinline__ void pixel(int tile, int ntx, int width,
+                                      int full_height, int y0, float& px,
+                                      float& py) {
+  const int lane = threadIdx.x;
+  const int org_x = (tile % ntx) * kTileW;
+  const int org_y = (tile / ntx) * kTileH + y0;
+  px = __fadd_rn((float)(org_x + lane % kTileW), 0.5f - (float)width * 0.5f);
+  py = __fadd_rn((float)(org_y + lane / kTileW),
+                 0.5f - (float)full_height * 0.5f);
+}
+
+template <int N_ATTRS, bool PEEL, bool DUAL>
+__global__ void __launch_bounds__(kThreads)
+raster_tile_kernel(const float* __restrict__ pairs,
+                   const int* __restrict__ starts,
+                   const int* __restrict__ counts,
+                   const int* __restrict__ tile_map,
+                   const float* __restrict__ bounds,
+                   float* __restrict__ out, int ntx, int width,
+                   int full_height, int y0) {
+  constexpr int kNum = N_ATTRS > 0 ? N_ATTRS : 2;
+  constexpr int kLayers = DUAL ? 2 : 1;
+  __shared__ float rows[kChunk * kMaxCols];
+
+  const int slot = blockIdx.x;
+  const int tile = tile_map != nullptr ? tile_map[slot] : slot;
+  const int lane = threadIdx.x;
+  float px, py;
+  pixel(tile, ntx, width, full_height, y0, px, py);
+  float prev = 0.0f, zmax = 0.0f;
+  if (PEEL) {
+    const float* b = bounds + (size_t)tile * 2 * kThreads + lane;
+    prev = b[0];
+    zmax = b[kThreads];
+  }
+
+  Layer<kNum> l1, l2;
+  walk<N_ATTRS, PEEL, DUAL>(pairs, starts[tile], counts[tile], px, py, prev,
+                            zmax, rows, l1, l2);
 
   float* o = out + (size_t)slot * (3 + kNum) * kLayers * kThreads + lane;
   l1.store(o);
   if (DUAL) l2.store(o + (3 + kNum) * kThreads);
+}
+
+// K2: stream A's single winner, stream B's two nearest layers (the first
+// N_ATTRS_B attributes), the fold under stream A's depth.
+template <int N_ATTRS_B>
+__global__ void __launch_bounds__(kThreads)
+merged_tile_kernel(const float* __restrict__ pairs_a,
+                   const int* __restrict__ starts_a,
+                   const int* __restrict__ counts_a,
+                   const float* __restrict__ pairs_b,
+                   const int* __restrict__ starts_b,
+                   const int* __restrict__ counts_b,
+                   float* __restrict__ out, int ntx, int width,
+                   int full_height, int y0) {
+  constexpr int kAttrs = 4;  // attribute planes of both tables
+  constexpr int kPlanesA = 3 + kAttrs;
+  constexpr int kPlanesB = 3 + N_ATTRS_B;
+  __shared__ float rows[kChunk * (20 + 3 * kAttrs)];
+
+  const int tile = blockIdx.x;
+  float px, py;
+  pixel(tile, ntx, width, full_height, y0, px, py);
+  float* o = out + (size_t)tile * (kPlanesA + 2 * kPlanesB) * kThreads +
+             threadIdx.x;
+
+  Layer<kAttrs> a1, a_unused;
+  walk<kAttrs, false, false>(pairs_a, starts_a[tile], counts_a[tile], px, py,
+                             0.0f, 0.0f, rows, a1, a_unused);
+  a1.store(o);
+
+  Layer<N_ATTRS_B> b1, b2;
+  const int count_b = counts_b[tile];
+  if (count_b > 0) {
+    walk<kAttrs, false, true>(pairs_b, starts_b[tile], count_b, px, py, 0.0f,
+                              0.0f, rows, b1, b2);
+    if (b1.d > a1.d) b1 = Layer<N_ATTRS_B>();
+    if (b2.d > a1.d) b2 = Layer<N_ATTRS_B>();
+  }
+  b1.store(o + kPlanesA * kThreads);
+  b2.store(o + (kPlanesA + kPlanesB) * kThreads);
 }
 
 template <int N_ATTRS>
@@ -228,9 +316,37 @@ extern "C" int raster_tile_launch(const float* pairs, const int* starts,
   if (n_attrs == 0) {
     launch<0>(peel, dual != 0, pairs, starts, counts, tile_map, bounds, out,
               n_slots, ntx, width, full_height, y0, s);
+  } else if (n_attrs == 4) {
+    launch<4>(peel, dual != 0, pairs, starts, counts, tile_map, bounds, out,
+              n_slots, ntx, width, full_height, y0, s);
   } else if (n_attrs == 8) {
     launch<8>(peel, dual != 0, pairs, starts, counts, tile_map, bounds, out,
               n_slots, ntx, width, full_height, y0, s);
+  } else {
+    return -1;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2 over the dense tile grid (n_tiles blocks, tile s = block s) of both
+// tables. Returns the launch's CUDA error code (0 = launched), -1 for an
+// unsupported n_attrs_b.
+extern "C" int merged_tile_launch(const float* pairs_a, const int* starts_a,
+                                  const int* counts_a, const float* pairs_b,
+                                  const int* starts_b, const int* counts_b,
+                                  float* out, int n_tiles, int ntx, int width,
+                                  int full_height, int y0, int n_attrs_b,
+                                  void* stream) {
+  if (n_tiles <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_attrs_b == 2) {
+    merged_tile_kernel<2><<<n_tiles, kThreads, 0, s>>>(
+        pairs_a, starts_a, counts_a, pairs_b, starts_b, counts_b, out, ntx,
+        width, full_height, y0);
+  } else if (n_attrs_b == 4) {
+    merged_tile_kernel<4><<<n_tiles, kThreads, 0, s>>>(
+        pairs_a, starts_a, counts_a, pairs_b, starts_b, counts_b, out, ntx,
+        width, full_height, y0);
   } else {
     return -1;
   }

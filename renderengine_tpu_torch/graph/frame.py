@@ -1,5 +1,5 @@
-"""The frame pipeline (torch port of the JAX package's ``graph/frame.py``,
-per-pixel path).
+"""The frame pipeline (torch port of the JAX package's ``graph/frame.py``:
+the per-pixel path and texture-space shading).
 
 This layer replaces the reference's command-buffer recording + render
 passes (``RenderScene::Render``, ``RenderScene.cpp:168-242``) as straight
@@ -10,9 +10,15 @@ encode. PyTorch runs eagerly, so there is no per-config compile cache;
 the initial camera, caches the shadow maps until ``mark_shadows_dirty()``
 and marshals one packed uniform vector per frame.
 
+Texture-space shading (``RenderConfig.texture_space``,
+``shading/lightchart.py``): the upload lays out and bakes light charts,
+every shadow-dirty frame bakes per-texel visibility and the static light
+tables, and each frame runs the specular chart pass; the screen passes
+then sample the chart tables. On the ``cuda`` backend the opaque pass and
+the first two translucent layers share one K2 launch.
+
 Not ported yet, and refused by ``FrameRenderer`` rather than skipped: the
-editor grid, the shadow-quad overlay and texture-space shading
-(``ROADMAP.md`` Queue 1).
+editor grid and the shadow-quad overlay (``ROADMAP.md`` Queue 1).
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ from ..raster.setup import (VertexOutputs, clip_coords, corner_clip,
 from ..scene.camera import ViewProperties
 from ..shading import fitting
 from ..shading import grid as grid_mod
-from ..shading import pbr, phong, skybox
+from ..shading import lightchart, pbr, phong, sampling, skybox
 from ..shading import shadow as shadow_mod
 from ..shading.srgb import encode_srgb8
 from . import uniforms
@@ -45,25 +51,38 @@ BACKENDS = ("reference", "cuda")
 
 _log = logging.getLogger(__name__)
 
+# test hook: force separate opaque/peel launches even where the merged
+# opaque+dual-peel kernel (K2) applies (parity tests compare both paths)
+_FORCE_UNMERGED = False
+
 # config switches of features that later slices port, with the slice each
 # waits for (ROADMAP.md Queue 1)
 _UNPORTED = (
     ("grid", "the rest-of-the-frame slice"),
     ("show_shadow_quad", "the rest-of-the-frame slice"),
-    ("texture_space", "the texture-space slice"),
-    ("tss_preshaded", "the texture-space slice"),
-    ("tss_preshaded_blend", "the texture-space slice"),
 )
 
 
 def check_config(config: RenderConfig) -> None:
     """Raise NotImplementedError for a config that turns on a feature this
-    package does not render yet, naming the slice it waits for."""
+    package does not render yet, naming the slice it waits for, and
+    ValueError for a texture-space config the mode does not support (it
+    needs PBR without the alpha-mask pass and ``debug_views=False``, and
+    the pre-shaded switches need ``texture_space``)."""
     for name, slice_ in _UNPORTED:
         if getattr(config, name):
             raise NotImplementedError(
                 f"RenderConfig.{name}=True is not ported yet: it arrives "
                 f"with {slice_}; set {name}=False")
+    if config.texture_space:
+        if config.shading != ShadingModel.PBR or config.alpha_mask:
+            raise ValueError("texture_space supports the PBR path without "
+                             "the alpha-mask pass")
+        if config.debug_views:
+            raise ValueError("texture_space needs debug_views=False (the "
+                             "factored screen pass has no debug taps)")
+    elif config.tss_preshaded or config.tss_preshaded_blend:
+        raise ValueError("tss_preshaded(_blend) requires texture_space=True")
 
 
 def _static_shadow_lights(dev_np: dict) -> tuple:
@@ -304,10 +323,15 @@ def render_frame(scene, uniform, shadow_maps, config: RenderConfig,
                  n_shadows: int, backend: str = "cuda",
                  has_translucent: bool = False,
                  slots_used=(True, True, True, True),
-                 shadow_lights=None, has_mask: bool = False):
+                 shadow_lights=None, has_mask: bool = False,
+                 alpha_is_factor: bool = False, ls_atlas=None):
     """The per-frame pass chain (minus the cached shadow depth). scene:
     device dict; uniform: packed per-frame float32 vector
     (``graph.uniforms``); shadow_maps: ``shadow.ShadowPack`` or None.
+    Texture-space configs read the baked chart keys of ``scene``;
+    ``alpha_is_factor`` (from the bake) lets pre-shaded peels read alpha
+    from the material table, and ``ls_atlas`` passes in a specular chart
+    pass computed elsewhere.
     Returns ([H,W,4] uint8 sRGB image, stats): ``pair_overflow`` counts
     binned pairs that did not fit the static budget (nonzero means dropped
     triangles), ``pair_tail_overflow`` the span>dense_k pairs past the
@@ -320,7 +344,8 @@ def render_frame(scene, uniform, shadow_maps, config: RenderConfig,
     vo = cached_vertex_outputs(scene, params["view"], params["proj"])
     return _frame_core(scene, params, vo, shadow_maps, config, n_shadows,
                        backend, has_translucent, slots_used,
-                       shadow_lights=shadow_lights, has_mask=has_mask)
+                       shadow_lights=shadow_lights, has_mask=has_mask,
+                       alpha_is_factor=alpha_is_factor, ls_atlas=ls_atlas)
 
 
 def _list_setup(scene, params, config: RenderConfig, corner_key: str, n_key,
@@ -354,11 +379,16 @@ def blend_setup(scene, params, config: RenderConfig):
 
 
 def _list_pairs(scene, setup, config: RenderConfig, corner_key: str,
-                mat_key: str, budget: int):
-    """A draw list's binned + packed pair table for K1: 8 attribute planes
-    (pos3 | normal3 | uv2) and the material ids per pair."""
+                mat_key: str, budget: int, chart_key: str | None = None):
+    """A draw list's binned + packed pair table for K1/K2: 8 attribute
+    planes (pos3 | normal3 | uv2), or with texture-space shading 4 (chart
+    uv | uv, from ``chart_key``), and the material ids per pair."""
     fh, w = config.render_extent()
-    ap = cuda_raster.attribute_planes(setup, scene[corner_key])
+    if config.texture_space:
+        ap = lightchart.tss_attribute_planes(setup, scene[chart_key],
+                                             scene[corner_key][..., 6:8])
+    else:
+        ap = cuda_raster.attribute_planes(setup, scene[corner_key])
     return cuda_raster.prepare_pairs(
         setup, fh, w, max_pairs=budget, attr_planes=ap,
         tri_mat=scene[mat_key], dense_k=config.raster.dense_k or None)
@@ -369,7 +399,7 @@ def opaque_pairs(scene, setup, config: RenderConfig):
               or _pair_budget(setup.coef.shape[0],
                               config.raster.pairs_per_tri))
     return _list_pairs(scene, setup, config, "corner_attr", "tri_material",
-                       budget)
+                       budget, "chart_corner")
 
 
 def blend_pairs(scene, setup_t, config: RenderConfig):
@@ -378,12 +408,82 @@ def blend_pairs(scene, setup_t, config: RenderConfig):
               or _pair_budget(setup_t.coef.shape[0],
                               config.raster.pairs_per_tri))
     return _list_pairs(scene, setup_t, config, "corner_attr_blend",
-                       "blend_tri_material", budget)
+                       "blend_tri_material", budget, "chart_corner_blend")
+
+
+def _tss_shade_fns(scene, config: RenderConfig, ls_atlas, slots_used,
+                   alpha_is_factor: bool, y0: int = 0):
+    """The texture-space screen passes of one frame, from this frame's
+    specular chart pass ``ls_atlas`` [3,Ah,Aw]: (opaque dense pass, peel
+    pass per pixel, peel pass dense). Each takes (chart_uv [...,2], uv
+    [...,2] or None, mat_id, need_alpha, covered) and returns rgba.
+
+    Factored TSS samples the merged light table (static diffuse planes +
+    this frame's specular planes) beside one albedo tap; pre-shaded charts
+    compose albedo * diffuse + specular in chart space and the screen pass
+    is one rgb9e5 block gather (+ an alpha block, or the material factor
+    alpha when ``alpha_is_factor``). Dense passes at chart density <= 0.5
+    (or ``tss_halfres_light=1``) sample on the half-res pixel grid.
+    ``tss_preshaded_blend`` pre-shades only the peels."""
+    c_ah, c_aw = ls_atlas.shape[1:]
+    pre_any = config.tss_preshaded or config.tss_preshaded_blend
+    half = (config.chart_density <= 0.5 if config.tss_halfres_light < 0
+            else bool(config.tss_halfres_light))
+
+    if pre_any:
+        rgb_blocks = lightchart.pack_rgbe_blocks(scene["chart_base"]
+                                                 + ls_atlas)
+        a_blocks = scene["chart_a"]
+
+        def factor_alpha(out, mat_id, need_alpha):
+            if not (need_alpha and alpha_is_factor):
+                return out
+            fa = sampling.table_lookup_planar(scene["mat_all"], mat_id,
+                                              (3,))[0]
+            return torch.cat([out[..., :3], fa[..., None]], -1)
+
+        def pre_px(chart_uv, uv, mat_id, need_alpha=True, covered=None):
+            out = lightchart.tss_shade_pre(
+                rgb_blocks, a_blocks, chart_uv, c_ah, c_aw,
+                need_alpha=need_alpha and not alpha_is_factor)
+            return factor_alpha(out, mat_id, need_alpha)
+
+        def pre_dense(chart_uv, uv, mat_id, need_alpha=True, covered=None):
+            if not half:
+                return pre_px(chart_uv, uv, mat_id, need_alpha)
+            out = lightchart.tss_shade_pre_halfres(
+                rgb_blocks, a_blocks, chart_uv, c_ah, c_aw, y0=y0,
+                need_alpha=need_alpha and not alpha_is_factor)
+            return factor_alpha(out, mat_id, need_alpha)
+
+    if config.tss_preshaded:
+        dense = pre_dense
+    else:
+        light8 = lightchart.merge_light_planes(
+            scene["chart_ld"], lightchart.pack_rgbe_planes(ls_atlas))
+        kw = dict(slots_used=slots_used, max_aniso=config.aniso(),
+                  dither=config.dither_trilinear)
+
+        def px(chart_uv, uv, mat_id, need_alpha=True, covered=None):
+            return lightchart.tss_shade(scene, chart_uv, uv, mat_id, light8,
+                                        c_ah, c_aw, covered=covered, **kw)
+
+        def dense(chart_uv, uv, mat_id, need_alpha=True, covered=None):
+            if half:
+                return lightchart.tss_shade_halfres(
+                    scene, chart_uv, uv, mat_id, light8, c_ah, c_aw, y0=y0,
+                    covered=covered, **kw)
+            return px(chart_uv, uv, mat_id, covered=covered)
+
+    if pre_any:
+        return dense, pre_px, pre_dense
+    return dense, px, dense
 
 
 def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
                 n_shadows: int, backend: str, has_translucent: bool,
-                slots_used, shadow_lights=None, has_mask: bool = False):
+                slots_used, shadow_lights=None, has_mask: bool = False,
+                alpha_is_factor: bool = False, ls_atlas=None):
     fh, w = config.render_extent()
     dev = vo.world_pos.device
     cuda = backend == "cuda"
@@ -424,6 +524,24 @@ def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
     # record_function spans name the layers for torch.profiler
     # (tools/profile_frame.py); with no profiler running they cost a little
     # host time and no device work
+    tss = config.texture_space
+    if tss:
+        # the per-frame SPECULAR chart pass (dense over chart texels, zero
+        # gathers); the diffuse table is static (baked on upload /
+        # shadow-dirty / exposure change)
+        with record_function("frame.tss_spec"):
+            if ls_atlas is None:
+                ls_atlas = lightchart.chart_light_spec(
+                    scene, scene["chart_pos"], scene["chart_normal"],
+                    scene["chart_mat"], scene["chart_vis"], view_args)
+            tss_dense, tss_blend_px, tss_blend_dense = _tss_shade_fns(
+                scene, config, ls_atlas, slots_used, alpha_is_factor)
+    # merged launch (K2): on the TSS cuda path the opaque base pass and the
+    # first TWO translucent peel layers share one tile walk
+    merged_ok = (cuda and tss and blend_pass
+                 and config.translucency_layers >= 2 and not mask_pass
+                 and not _FORCE_UNMERGED)
+    merged_layers = None
     with record_function("frame.setup"):
         setup = opaque_setup(scene, params, config, has_mask)
         # (the blend draw list's setup/binning sits before the opaque
@@ -439,13 +557,32 @@ def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
                 prep_t = blend_pairs(scene, setup_t, config)
                 blend_overflow = blend_overflow + prep_t.bins.n_overflow
                 tail_overflow = tail_overflow + prep_t.bins.n_tail
-    with record_function("frame.raster"):
-        g, attrs = rasterize(setup, fh, w, backend, prepared=prep)
+    if merged_ok:
+        # pre-shaded peels consume chart uv only: the blend stream
+        # interpolates just that prefix
+        nab = 2 if (config.tss_preshaded or config.tss_preshaded_blend) \
+            else None
+        with record_function("frame.merged_raster"):
+            (g, attrs), merged_layers = cuda_raster.rasterize_cuda_merged(
+                fh, w, prep, prep_t, n_attrs_b=nab)
+    else:
+        with record_function("frame.raster"):
+            g, attrs = rasterize(setup, fh, w, backend, prepared=prep)
+    covered = g.tri_id >= 0
+    if tss:
+        if attrs is not None:
+            frag = {"chart_uv": attrs[..., 0:2], "uv": attrs[..., 2:4],
+                    "mat_id": g.mat_id}
+        else:
+            frag = lightchart.resolve_tss(scene, setup.coef, g, fh, w)
+        with record_function("frame.shade"):
+            rgba = tss_dense(frag["chart_uv"], frag["uv"], frag["mat_id"],
+                             need_alpha=False, covered=covered)
+    else:
         frag = (kernel_frag(g, attrs) if attrs is not None else
                 resolve_attributes(scene, vo, setup.coef, g, fh, w))
-    covered = g.tri_id >= 0
-    with record_function("frame.shade"):
-        rgba = shade(frag, covered)
+        with record_function("frame.shade"):
+            rgba = shade(frag, covered)
     depth_eff = g.depth
 
     # alpha-MASK cutoff pass (beyond the reference's live path, which draws
@@ -517,8 +654,26 @@ def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
                                    * config.translucency_tile_fraction))
         layer_budgets = config.blend_layer_tile_budgets
 
-        def resolve_and_shade(fr):
-            # resolve + shade, on the compacted pseudo-image when sparse
+        def resolve_and_shade(fr, dense=False):
+            # resolve + shade, on the compacted pseudo-image when sparse;
+            # ``dense``: fr holds full [H, W] planes (a full-coverage peel
+            # layer), so the half-res TSS passes apply
+            if tss:
+                tss_sh = tss_blend_dense if dense else tss_blend_px
+                if "attrs" in fr:
+                    # pre-shaded merged peels carry chart uv only
+                    a = fr["attrs"]
+                    uv = a[..., 2:4] if a.shape[-1] > 2 else None
+                    return tss_sh(a[..., 0:2], uv, fr["mat_id"],
+                                  covered=fr["covered"])
+                gsub = rref.GBuffer(depth=None, tri_id=fr["tri_id"],
+                                    bary=fr["bary"])
+                fsub = lightchart.resolve_tss(
+                    scene, setup_t.coef, gsub, *fr["tri_id"].shape,
+                    tri_table="blend_tri_packed",
+                    corner_table="chart_corner_blend")
+                return tss_sh(fsub["chart_uv"], fsub["uv"], fsub["mat_id"],
+                              covered=fr["covered"])
             if "attrs" in fr:
                 fsub = {"pos": fr["attrs"][..., 0:3],
                         "normal": fr["attrs"][..., 3:6],
@@ -539,10 +694,16 @@ def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
                 (prep_t.bins.counts > 0).sum() - active).clamp_min(0)
         # cuda: successive peel layers raster PAIRWISE in one launch (the
         # dual two-nearest kernel): each launch pays the full per-tile
-        # walk, so halving launches halves that cost
+        # walk, so halving launches halves that cost. The first two layers
+        # may have come from the merged launch already.
         prev = torch.full((fh, w), -1.0, dtype=torch.float32, device=dev)
         raster_layers = []
         li = 0
+        if merged_layers is not None:
+            raster_layers.extend(merged_layers)
+            g_last = merged_layers[1][0]
+            prev = torch.where(g_last.tri_id >= 0, g_last.depth, 2.0)
+            li = 2
         with record_function("frame.peel_raster"):
             while li < config.translucency_layers:
                 dual = cuda and li + 1 < config.translucency_layers
@@ -576,7 +737,7 @@ def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
                     # full-coverage layer (e.g. a screen-filling banner):
                     # the sparse tilefy/top-k/gather/scatter is pure
                     # overhead
-                    rgba_t = resolve_and_shade(sp_in)
+                    rgba_t = resolve_and_shade(sp_in, dense=True)
                 else:
                     rgba_t = shade_sparse(resolve_and_shade, sp_in, fh, w,
                                           th, tw, max_tiles=budget,
@@ -647,7 +808,18 @@ class FrameRenderer:
         self.scene_host = scene_host
         self.config = config
         self.n_shadows = scene_host.n_shadow_maps if config.shadows else 0
-        dev_np = scene_host.upload()
+        if config.texture_space:
+            # subdivide huge-footprint triangles at upload so every chart
+            # fits MAX_R texels at the requested density, then lay the
+            # charts out from the INITIAL camera footprint (host, once)
+            vp0 = ViewProperties.from_camera(scene_host.camera)
+            viewproj0 = np.asarray(vp0.proj) @ np.asarray(vp0.view)
+            dev_np = scene_host.upload(chart_subdiv=dict(
+                viewproj=viewproj0, width=config.width,
+                height=config.height, density=config.chart_density))
+            lightchart.attach_chart_layout(dev_np, viewproj0, config)
+        else:
+            dev_np = scene_host.upload()
         self.scene_dev = scene_to_device(dev_np, self.device)
         self._slots_used = tuple(bool((dev_np[k] >= 0).any()) for k in
                                  ("mat_tex_base", "mat_tex_emissive",
@@ -690,6 +862,19 @@ class FrameRenderer:
         self._shadow_vp_cache = None
         self.shadow_overflow = 0    # dropped pairs of the last shadow pass
         self._last_stats = None     # the previous frame's counters
+        self._alpha_is_factor = False
+        if config.texture_space:
+            # device bakes (once per upload): per-texel geometry, the full
+            # material remap, the pre-shaded albedo, the static light
+            # tables. alpha_is_factor is decided on the host from the
+            # texture alpha channels.
+            self._baked_exposure = float(scene_host.camera.exposure)
+            with record_function("frame.tss_bake"):
+                up, self._alpha_is_factor = lightchart.setup_scene_tss(
+                    self.scene_dev, config, self._slots_used,
+                    self._baked_exposure, lightchart.host_alpha_is_factor(
+                        dev_np, getattr(scene_host, "textures", None)))
+            self.scene_dev.update(up)
 
     def _shade_tile_total(self) -> int:
         h, w = self.config.render_extent()
@@ -922,13 +1107,38 @@ class FrameRenderer:
             self._grow_budgets(self._last_stats)
         u = torch.from_numpy(self.uniform_for_camera(view_props)).to(
             self.device)
+        sd = self.scene_dev
+        if self.config.texture_space:
+            # exposure is folded into the static diffuse bake; a change
+            # re-bakes it (unless the shadow re-bake below does anyway)
+            e = (float(view_props.exposure) if view_props is not None
+                 else float(self.scene_host.camera.exposure))
+            if e != self._baked_exposure:
+                self._baked_exposure = e
+                if not (self.n_shadows > 0 and self._shadows_dirty):
+                    with record_function("frame.tss_bake"):
+                        sd.update(lightchart.static_tables(sd, self.config,
+                                                           e))
         if self.n_shadows > 0 and self._shadows_dirty:
             self._render_shadows(u)
+            if self.config.texture_space:
+                # bake per-texel PCF visibility from the new maps, then the
+                # static light tables: the frame never gathers PCF windows
+                with record_function("frame.tss_bake"):
+                    params = unpack_params(u, self.n_shadows)
+                    geo = {"pos": sd["chart_pos"],
+                           "normal": sd["chart_normal"],
+                           "mat_id": sd["chart_mat"][15]}
+                    sd["chart_vis"] = lightchart.bake_visibility(
+                        sd, geo, self._shadow_maps,
+                        params["shadow_viewproj"], self._shadow_lights)
+                    sd.update(lightchart.static_tables(
+                        sd, self.config, self._baked_exposure))
         img, stats = render_frame(
-            self.scene_dev, u, self._shadow_maps, self.config,
+            sd, u, self._shadow_maps, self.config,
             self.n_shadows, self.backend, self._has_translucent,
             self._slots_used, shadow_lights=self._shadow_lights,
-            has_mask=self._has_mask)
+            has_mask=self._has_mask, alpha_is_factor=self._alpha_is_factor)
         self._last_stats = stats
         return img, stats
 

@@ -1,5 +1,6 @@
-"""Tile raster on the GPU: host-side pair packing, the K1 kernel wrapper
-(``csrc/raster_tile.cu``) and its plain PyTorch version.
+"""Tile raster on the GPU: host-side pair packing, the K1 and K2 kernel
+wrappers (both in ``csrc/raster_tile.cu``) and their plain PyTorch
+versions.
 
 Port of ``renderengine_tpu/raster/pallas_raster.py`` (``rasterize_pallas``
 and ``_raster_kernel``: single winner or the two nearest layers, per-pixel
@@ -10,9 +11,14 @@ outside the kernel (one row gather) as
     pair_data [P, cpp] f32   cols: e0(3) e1(3) e2(3) z(3) w(3)
                              tie-eps(3) tri_f mat_f [attr planes 3*n]
 
-one row per pair, ``cpp = 20 + 3 * n_attrs`` (20 or 44: a multiple of 4
-floats). The TPU packing of several pairs per 128-lane row was a DMA rule
+one row per pair, ``cpp = 20 + 3 * n_attrs`` (20, 32 or 44: a multiple of
+4 floats). The TPU packing of several pairs per 128-lane row was a DMA rule
 of that chip and is gone.
+
+K2 (``merged_tiles``, port of ``rasterize_pallas_merged`` and
+``_merged_kernel``) walks two such tables, 4 attributes a pair, in one
+launch: the opaque winner and the two nearest translucent layers, capped
+by the opaque depth (the texture-space path).
 
 Tie rule without branches: the pack stores eps_i = 1e-35 for edges that
 accept E==0 (top-left rule) and the kernel tests ``E + eps_i > 0``. 1e-35
@@ -21,8 +27,9 @@ the biased test is bit-exact with ``(E > 0) | ((E == 0) & tie)``.
 
 Ids ride as integer-valued floats (exact below 2^24).
 
-On a CPU tensor ``raster_tiles`` runs ``_raster_tiles_plain``; on a CUDA
-tensor it launches the kernel or raises — there is no fallback.
+On a CPU tensor ``raster_tiles`` runs ``_raster_tiles_plain`` (and
+``merged_tiles`` ``_merged_tiles_plain``); on a CUDA tensor each launches
+its kernel or raises — there is no fallback.
 """
 
 from __future__ import annotations
@@ -52,12 +59,16 @@ ATTR0 = 20                # first attribute-plane column
 MAT_LIMIT = 1 << 24       # ids must stay exact as integer-valued f32
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "raster_tile.cu"
+SOURCE = _PKG / "csrc" / "raster_tile.cu"          # K1 and K2
 BUILD_DIR = _PKG / "build"
+K1_ATTRS = (0, 4, 8)      # the attribute counts K1 is built for
+K2_ATTRS = 4              # attributes a K2 pair row carries
+K2_ATTRS_B = (2, 4)       # attribute prefixes K2's blend layers interpolate
 
-# launches of the K1 kernel (plain-version runs do not count): the total,
-# and the same launches by variant (n_attrs, peel, dual)
-launch_counts = {"raster_tile": 0}
+# launches of the kernels (plain-version runs do not count): the totals,
+# and the same launches by variant: (n_attrs, peel, dual) for K1,
+# ("merged", n_attrs_b) for K2
+launch_counts = {"raster_tile": 0, "merged_tile": 0}
 variant_counts: collections.Counter = collections.Counter()
 
 _lib = None
@@ -135,7 +146,7 @@ def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the K1 kernel builds on a CUDA host")
+    raise RuntimeError("nvcc not found: the kernels build on a CUDA host")
 
 
 def build() -> Path:
@@ -169,6 +180,9 @@ def _library():
         lib.raster_tile_launch.restype = ctypes.c_int
         lib.raster_tile_launch.argtypes = (
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        lib.merged_tile_launch.restype = ctypes.c_int
+        lib.merged_tile_launch.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         _lib = lib
     return _lib
 
@@ -229,8 +243,8 @@ def raster_tiles(pair_data: torch.Tensor, starts: torch.Tensor,
         return _raster_tiles_plain(pair_data, starts, counts, ntx, width,
                                    full_height, y0, n_attrs, bounds,
                                    tile_map, dual)
-    if n_attrs not in (0, 8):
-        raise ValueError(f"K1 is built for n_attrs 0 or 8, not {n_attrs}")
+    if n_attrs not in K1_ATTRS:
+        raise ValueError(f"K1 is built for n_attrs {K1_ATTRS}, not {n_attrs}")
     dev = pair_data.device
     extra = [t for t in (bounds, tile_map) if t is not None]
     if dev.type != "cuda" or any(t.device != dev
@@ -284,13 +298,13 @@ def _raster_tiles_plain(pair_data, starts, counts, ntx: int, width: int,
     its pairs in ascending order with strict depth tests. Step i updates
     the tiles holding more than i pairs; tiles are kept in descending-count
     order so those are always a prefix. Same arguments and result as
-    ``raster_tiles``. If ``stats`` is given, its ``"wins"`` is set to the
-    number of (pair, pixel) fragments that entered a layer (the fragments
-    for which the kernel does its per-winner work) and its ``"demotes"``
-    to those of them that entered layer 1 of a ``dual`` walk, pushing the
-    old layer 1 down."""
-    if dual and bounds is None:
-        raise ValueError("dual (peel_layers=2) requires peel bounds")
+    ``raster_tiles``, and ``dual`` also runs without ``bounds`` (K2's blend
+    walk). ``n_attrs`` may be less than the table's attribute planes: the
+    walk then interpolates that prefix. If ``stats`` is given, its
+    ``"wins"`` is set to the number of (pair, pixel) fragments that entered
+    a layer (the fragments for which the kernel does its per-winner work)
+    and its ``"demotes"`` to those of them that entered layer 1 of a
+    ``dual`` walk, pushing the old layer 1 down."""
     dev = pair_data.device
     n_num = n_attrs if n_attrs else 2
     npx = TILE_H * TILE_W
@@ -393,9 +407,10 @@ def rasterize_cuda(setup: TriSetup, height: int, width: int,
                    active_tiles: int | None = None, peel_layers: int = 1):
     """Bin + pack + K1. Same G-buffer as ``rasterize_reference``.
 
-    ``attr_planes``: optional [T,24] from ``attribute_planes`` — the kernel
-    then interpolates pos/normal/uv for the winner and the result is
-    (GBuffer, attrs [H,W,8]); otherwise a GBuffer with ``bary`` filled.
+    ``attr_planes``: optional [T,3n] from ``attribute_planes`` (n = 8:
+    pos/normal/uv; 4: the texture-space chart uv/uv) — the kernel then
+    interpolates them for the winner and the result is (GBuffer, attrs
+    [H,W,n]); otherwise a GBuffer with ``bary`` filled.
     ``tri_mat``: optional [T] int material ids, returned as ``mat_id``.
     ``y0``/``full_height`` raster a row slice of a taller viewport.
     ``prepared``: a ``prepare_pairs`` result to reuse (skips binning and
@@ -461,3 +476,138 @@ def rasterize_cuda(setup: TriSetup, height: int, width: int,
         return [unpack(blk[:, :pp]), unpack(blk[:, pp:])]
     g, attrs = unpack(blk)
     return (g, attrs) if n_attrs else g
+
+
+# --- K2: the merged opaque + two-layer translucent launch -------------------
+
+def _merged_planes(n_attrs_b: int) -> int:
+    """Output planes per tile of K2: the opaque layer (3 + 4) and two
+    blend layers of 3 + n_attrs_b."""
+    return 3 + K2_ATTRS + 2 * (3 + n_attrs_b)
+
+
+def merged_tiles(pairs_a: torch.Tensor, starts_a: torch.Tensor,
+                 counts_a: torch.Tensor, pairs_b: torch.Tensor,
+                 starts_b: torch.Tensor, counts_b: torch.Tensor, ntx: int,
+                 width: int, full_height: int, y0: int = 0,
+                 n_attrs_b: int = 4) -> torch.Tensor:
+    """Run K2 over the dense tile grid: -> [n_tiles, 7 + 2 * (3 +
+    n_attrs_b), 256] f32 planes: the opaque winner of table A (depth | tri
+    | mat | 4 attributes), then the two nearest layers of table B (depth |
+    tri | mat | the first ``n_attrs_b`` attributes), each voided (depth 1,
+    tri -1, zeros) where deeper than the opaque depth. Both tables are
+    [P, 32] (4 attribute planes a pair). CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
+    if n_attrs_b not in K2_ATTRS_B:
+        raise ValueError(f"K2 is built for n_attrs_b {K2_ATTRS_B}, "
+                         f"not {n_attrs_b}")
+    if pairs_a.device.type == "cpu":
+        return _merged_tiles_plain(pairs_a, starts_a, counts_a, pairs_b,
+                                   starts_b, counts_b, ntx, width,
+                                   full_height, y0, n_attrs_b)
+    dev = pairs_a.device
+    ints = [starts_a, counts_a, starts_b, counts_b]
+    if dev.type != "cuda" or any(t.device != dev for t in ints + [pairs_b]):
+        raise ValueError("both pair tables and their starts/counts must "
+                         "share a CUDA device")
+    cpp = _cols_per_pair(K2_ATTRS)
+    for pd in (pairs_a, pairs_b):
+        if pd.dtype != torch.float32:
+            raise TypeError("pair tables must be float32")
+        if pd.dim() != 2 or pd.shape[1] != cpp:
+            raise ValueError(f"pair tables must be [P, {cpp}]")
+    if any(t.dtype != torch.int32 for t in ints):
+        raise TypeError("starts/counts must be int32")
+    n_tiles = starts_a.shape[0]
+    if starts_a.dim() != 1 or any(t.shape != (n_tiles,) for t in ints):
+        raise ValueError("starts and counts must be [n_tiles] for both "
+                         "tables")
+    if not all(t.is_contiguous() for t in ints + [pairs_a, pairs_b]):
+        raise ValueError("K2 inputs must be contiguous")
+    out = torch.empty((n_tiles, _merged_planes(n_attrs_b), TILE_H * TILE_W),
+                      dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _library().merged_tile_launch(
+            pairs_a.data_ptr(), starts_a.data_ptr(), counts_a.data_ptr(),
+            pairs_b.data_ptr(), starts_b.data_ptr(), counts_b.data_ptr(),
+            out.data_ptr(), n_tiles, ntx, width, full_height, y0, n_attrs_b,
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"merged_tile launch failed: CUDA error {rc}")
+    launch_counts["merged_tile"] += 1
+    variant_counts[("merged", n_attrs_b)] += 1
+    return out
+
+
+def _merged_tiles_plain(pairs_a, starts_a, counts_a, pairs_b, starts_b,
+                        counts_b, ntx: int, width: int, full_height: int,
+                        y0: int = 0, n_attrs_b: int = 4,
+                        stats: dict | None = None) -> torch.Tensor:
+    """K2 in plain torch ops with the kernel's op order: K1's plain single
+    walk over table A, K1's plain dual walk with no bounds over table B
+    (the first ``n_attrs_b`` attributes), then the fold: a blend layer
+    deeper than the opaque depth becomes the clear layer (depth 1, tri -1,
+    zeros). Same arguments and result as ``merged_tiles``; ``stats``
+    (optional) gets K1's per-walk counts of table A (``"wins"``) and table
+    B (``"wins_b"``, ``"demotes"``)."""
+    st_a = {} if stats is not None else None
+    st_b = {} if stats is not None else None
+    a = _raster_tiles_plain(pairs_a, starts_a, counts_a, ntx, width,
+                            full_height, y0, K2_ATTRS, stats=st_a)
+    b = _raster_tiles_plain(pairs_b, starts_b, counts_b, ntx, width,
+                            full_height, y0, n_attrs_b, dual=True,
+                            stats=st_b)
+    pb = 3 + n_attrs_b
+    cap = a[:, 0]
+    clear = torch.zeros(pb, dtype=torch.float32, device=a.device)
+    clear[0], clear[1] = 1.0, -1.0
+    layers = []
+    for li in range(2):
+        lay = b[:, li * pb:(li + 1) * pb]
+        void = (lay[:, 0] > cap)[:, None, :]
+        layers.append(torch.where(void, clear[None, :, None], lay))
+    if stats is not None:
+        stats["wins"] = st_a["wins"]
+        stats["wins_b"] = st_b["wins"]
+        stats["demotes"] = st_b["demotes"]
+    return torch.cat([a] + layers, 1)
+
+
+def rasterize_cuda_merged(height: int, width: int, prepared: PreparedPairs,
+                          prepared_blend: PreparedPairs, y0: int = 0,
+                          full_height: int | None = None,
+                          n_attrs_b: int | None = None):
+    """One K2 launch = the opaque base pass + the two nearest translucent
+    peel layers (the texture-space path). Both PreparedPairs carry 4
+    attribute planes and material ids. ``n_attrs_b``: the blend layers
+    interpolate only this prefix of the attributes (2 = chart uv alone,
+    the pre-shaded peels). Returns ((g_opaque, attrs [H,W,4]), [(g1, a1),
+    (g2, a2)]) with blend attrs [H,W,n_attrs_b]."""
+    fh = height if full_height is None else full_height
+    ntx = -(-width // TILE_W)
+    nty = -(-height // TILE_H)
+    if prepared.n_attrs != K2_ATTRS or prepared_blend.n_attrs != K2_ATTRS:
+        raise ValueError(f"K2 pair tables carry {K2_ATTRS} attributes")
+    nab = K2_ATTRS if n_attrs_b is None else n_attrs_b
+    b, bb = prepared.bins, prepared_blend.bins
+    blk = merged_tiles(prepared.pair_data, b.starts, b.counts,
+                       prepared_blend.pair_data, bb.starts, bb.counts, ntx,
+                       width, fh, y0, nab)
+
+    def untile(a):
+        a = a.reshape(nty, ntx, TILE_H, TILE_W).permute(0, 2, 1, 3)
+        return a.reshape(nty * TILE_H, ntx * TILE_W)[:height, :width]
+
+    def unpack(lb, has_mat, na):
+        tri_id = untile(lb[:, 1]).to(torch.int32)
+        mat_id = (torch.where(tri_id >= 0, untile(lb[:, 2]).to(torch.int32),
+                              0) if has_mat else None)
+        g = GBuffer(untile(lb[:, 0]), tri_id, None, mat_id)
+        return g, torch.stack([untile(lb[:, 3 + a]) for a in range(na)], -1)
+
+    pa, pb = 3 + K2_ATTRS, 3 + nab
+    opaque = unpack(blk[:, :pa], prepared.has_mat, K2_ATTRS)
+    l1 = unpack(blk[:, pa:pa + pb], prepared_blend.has_mat, nab)
+    l2 = unpack(blk[:, pa + pb:], prepared_blend.has_mat, nab)
+    return opaque, [l1, l2]

@@ -66,12 +66,12 @@ class Scene:
         triangles (all-zero vertices -> zero area -> never rastered), so
         scene edits of similar size keep the same shapes.
 
-        ``chart_subdiv`` belongs to texture-space shading, which this
-        package does not carry yet: passing it raises."""
-        if chart_subdiv is not None:
-            raise NotImplementedError(
-                "chart_subdiv (texture-space shading) is not ported yet; "
-                "it arrives with the texture-space slice")
+        ``chart_subdiv``: texture-space configs pass
+        ``dict(viewproj=..., width=..., height=..., density=...)`` —
+        triangles whose chart would exceed ``lightchart.MAX_R`` texels
+        per edge (huge floors/walls) are subdivided on a power-of-two
+        barycentric grid so every chart fits MAX_R at the requested
+        density (see ``_chart_subdivide``)."""
         pos, nrm, uv, vert_node, tri_vidx, tri_mat_handle, tri_node = self.meshes.build_arrays()
         transforms, normal_mats = self.tree.build_arrays()
 
@@ -90,6 +90,11 @@ class Scene:
         tri_mat = tri_mat[order]
         tri_node = tri_node[order]
         tri_mode = tri_mode[order]
+        if chart_subdiv is not None and len(tri_vidx):
+            (pos, nrm, uv, vert_node, tri_vidx, tri_mat, tri_node,
+             tri_mode) = _chart_subdivide(
+                pos, nrm, uv, vert_node, tri_vidx, tri_mat, tri_node,
+                tri_mode, transforms, **chart_subdiv)
         n_strict = int((tri_mode == int(AlphaMode.OPAQUE)).sum())
         n_mask = int((tri_mode == int(AlphaMode.MASK)).sum())
         n_opaque = n_strict + n_mask
@@ -169,6 +174,194 @@ class Scene:
         device.update(self.textures.build_atlas())
         device.update(_pack_rows(device))
         return device
+
+
+def _chart_subdivide(pos, nrm, uv, vert_node, tri_vidx, tri_mat, tri_node,
+                     tri_mode, transforms, viewproj, width, height,
+                     density, max_k: int = 8, r_split: int = 128,
+                     rounds: int = 3):
+    """Subdivide triangles whose texture-space chart would exceed
+    ``r_split`` texels per edge (huge floors/walls: charts are squares
+    with uniform texel density, so one triangle can only ever get
+    MAX_R^2 texels no matter its screen footprint, and a triangle
+    spanning a large depth range spreads them evenly while the
+    perspective-magnified near field needs most of them — pre-shaded
+    albedo and lighting blur near the camera without this).
+
+    Each oversized triangle is split on a power-of-two K x K barycentric
+    grid into K^2 sub-triangles, ITERATIVELY (``rounds``): a cell's next
+    footprint is measured from its own screen area, so near-field cells
+    keep splitting while far cells stop — texel density adapts to
+    perspective at no budget cost (cell areas sum to the parent's, and
+    chart texels scale with area). Properties the chart packer and
+    raster rely on:
+
+    - K is a power of two and shared across quad mates, so grid weights
+      c/K are exact binary fractions: shared-edge vertices interpolate
+      BITWISE identically from both sides (addition is commutative and
+      the zero-weight corner contributes an exact 0) — no cracks.
+    - Up/down sub-triangle pairs are emitted adjacently at even indices
+      with the parent's material, so ``lightchart._quad_mates`` pairs
+      them into shared squares (seamless bilinear across the cell
+      diagonal); segment starts are even-aligned with degenerate padding.
+    - Sub-triangle winding preserves the parent's (CCW sub-grids for
+      up-triangles, the down-triangle order re-wound to positive
+      barycentric orientation), so culling is unchanged.
+    - Original corner vertices are reused; interior/edge vertices are
+      appended with object-space attrs interpolated linearly (exact for
+      uv; normals renormalize at the world bake like any vertex).
+
+    Neighbor parents subdivided at different K leave T-junctions on the
+    shared edge; interpolated points sit within 1 ulp of the parent edge,
+    so raster coverage is unaffected at pixel precision."""
+    from ..shading.lightchart import MAX_R, _footprint_px, _quad_mates
+
+    thr = min(r_split, MAX_R)
+    for _ in range(rounds):
+        args = _chart_subdivide_once(
+            pos, nrm, uv, vert_node, tri_vidx, tri_mat, tri_node, tri_mode,
+            transforms, viewproj, width, height, density, max_k, thr,
+            _footprint_px, _quad_mates)
+        if args is None:
+            break
+        (pos, nrm, uv, vert_node, tri_vidx, tri_mat, tri_node,
+         tri_mode) = args
+    return pos, nrm, uv, vert_node, tri_vidx, tri_mat, tri_node, tri_mode
+
+
+def _chart_subdivide_once(pos, nrm, uv, vert_node, tri_vidx, tri_mat,
+                          tri_node, tri_mode, transforms, viewproj, width,
+                          height, density, max_k, thr,
+                          _footprint_px, _quad_mates):
+    """One subdivision round (see ``_chart_subdivide``); returns the
+    rebuilt arrays, or None when nothing exceeds ``thr``."""
+    t = len(tri_vidx)
+    if len(transforms) == 0:
+        transforms = np.eye(4, dtype=np.float32)[None]
+    tfv = transforms[np.clip(vert_node, 0, len(transforms) - 1)]
+    wh = (tfv[:, :3, :3] * pos[:, None, :]).sum(-1) + tfv[:, :3, 3]
+    ww = (tfv[:, 3, :3] * pos).sum(-1) + tfv[:, 3, 3]
+    world = (wh / np.maximum(np.abs(ww), 1e-20)[:, None]
+             * np.sign(ww)[:, None]).astype(np.float32)
+    area = _footprint_px(world[tri_vidx], viewproj, width, height)
+    r_raw = density * np.sqrt(2.0 * np.maximum(area, 1.0))
+    k = np.ones(t, np.int64)
+    over = r_raw > thr
+    if not over.any():
+        return None
+    k[over] = np.exp2(np.ceil(np.log2(r_raw[over] / thr))).astype(np.int64)
+    k = np.minimum(k, max_k)
+    partner = _quad_mates(tri_vidx, tri_mat)
+    pa = np.where(partner >= 0, partner, np.arange(t))
+    k = np.maximum(k, k[pa])          # mates share K: crack-free diagonal
+
+    new_pos = [np.asarray(pos, np.float32)]
+    new_nrm = [np.asarray(nrm, np.float32)]
+    new_uv = [np.asarray(uv, np.float32)]
+    new_node = [np.asarray(vert_node, np.int32)]
+    vnext = len(pos)
+
+    def grid_verts(i):
+        """(K+1)-row barycentric vertex grid for tri i; returns index map
+        g[(r,c)] -> global vertex id (corners reuse the originals)."""
+        nonlocal vnext
+        K = int(k[i])
+        v0, v1, v2 = (int(v) for v in tri_vidx[i])
+        a0, a1, a2 = pos[v0], pos[v1], pos[v2]
+        n0, n1, n2 = nrm[v0], nrm[v1], nrm[v2]
+        u0, u1, u2 = uv[v0], uv[v1], uv[v2]
+        g = {}
+        app_p, app_n, app_u = [], [], []
+        for r in range(K + 1):
+            for c in range(K + 1 - r):
+                if (r, c) == (0, 0):
+                    g[(r, c)] = v0
+                elif (r, c) == (0, K):
+                    g[(r, c)] = v1
+                elif (r, c) == (K, 0):
+                    g[(r, c)] = v2
+                else:
+                    s = np.float32(c / K)     # exact: K is a power of two
+                    tt = np.float32(r / K)
+                    w0 = np.float32(1.0) - s - tt
+                    app_p.append(w0 * a0 + s * a1 + tt * a2)
+                    app_n.append(w0 * n0 + s * n1 + tt * n2)
+                    app_u.append(w0 * u0 + s * u1 + tt * u2)
+                    g[(r, c)] = vnext
+                    vnext += 1
+        if app_p:
+            new_pos.append(np.asarray(app_p, np.float32))
+            new_nrm.append(np.asarray(app_n, np.float32))
+            new_uv.append(np.asarray(app_u, np.float32))
+            new_node.append(np.full(len(app_p), tri_node[i], np.int32))
+        return g, int(k[i])
+
+    def subdivide(i):
+        """Sub-triangles of tri i as (pairs, singles) lists of vidx
+        triples. Up-tri (r,c): rows CCW in barycentric space (parent
+        winding); its paired down-tri shares two vertices."""
+        g, K = grid_verts(i)
+        pairs, singles = [], []
+        for r in range(K):
+            for c in range(K - r):
+                up = (g[(r, c)], g[(r, c + 1)], g[(r + 1, c)])
+                if c < K - r - 1:
+                    down = (g[(r, c + 1)], g[(r + 1, c + 1)], g[(r + 1, c)])
+                    pairs.append((up, down))
+                else:
+                    singles.append(up)
+        return pairs, singles
+
+    o_vidx, o_mat, o_node, o_mode = [], [], [], []
+
+    def emit(vidx3, mat, node, mode):
+        o_vidx.append(vidx3)
+        o_mat.append(mat)
+        o_node.append(node)
+        o_mode.append(mode)
+
+    for mode in sorted(set(int(m) for m in tri_mode)):
+        seg = np.nonzero(tri_mode == mode)[0]
+        if len(seg) == 0:
+            continue
+        if len(o_vidx) % 2:             # even-align so pairs stay mated
+            emit((0, 0, 0), int(tri_mat[seg[0]]), 0, mode)
+        kept_pairs, kept_singles = [], []
+        sub_pairs, sub_singles = [], []
+        i = 0
+        while i < len(seg):
+            ti = int(seg[i])
+            is_pair = (partner[ti] == ti + 1 and i + 1 < len(seg)
+                       and int(seg[i + 1]) == ti + 1)
+            units = (ti, ti + 1) if is_pair else (ti,)
+            if int(k[ti]) == 1:
+                (kept_pairs if is_pair else kept_singles).append(units)
+            else:
+                for u in units:
+                    p, s = subdivide(u)
+                    sub_pairs.extend((pp, int(tri_mat[u]), int(tri_node[u]))
+                                     for pp in p)
+                    sub_singles.extend((ss, int(tri_mat[u]), int(tri_node[u]))
+                                       for ss in s)
+            i += len(units)
+        for units in kept_pairs:
+            for u in units:
+                emit(tuple(int(v) for v in tri_vidx[u]), int(tri_mat[u]),
+                     int(tri_node[u]), mode)
+        for (up, down), mat, node in sub_pairs:
+            emit(up, mat, node, mode)
+            emit(down, mat, node, mode)
+        for units in kept_singles:
+            for u in units:
+                emit(tuple(int(v) for v in tri_vidx[u]), int(tri_mat[u]),
+                     int(tri_node[u]), mode)
+        for ss, mat, node in sub_singles:
+            emit(ss, mat, node, mode)
+
+    return (np.concatenate(new_pos), np.concatenate(new_nrm),
+            np.concatenate(new_uv), np.concatenate(new_node),
+            np.asarray(o_vidx, np.int32), np.asarray(o_mat, np.int32),
+            np.asarray(o_node, np.int32), np.asarray(o_mode, np.int32))
 
 
 def _pack_rows(device: dict) -> dict:

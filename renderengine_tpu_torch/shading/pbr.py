@@ -199,7 +199,7 @@ def remap_material(scene, mat_id, frag_pos, uv, frag_normal,
     diffuse = (1.0 - metal)[..., None] * base_color[..., :3]
     f0 = ((m["mat_f0"] * (1.0 - metal))[..., None]
           + base_color[..., :3] * metal[..., None])
-    return {
+    out = {
         "normal": normal,
         "base_color": base_color,
         "diffuse": diffuse,
@@ -209,6 +209,12 @@ def remap_material(scene, mat_id, frag_pos, uv, frag_normal,
         "roughness": roughness,
         "occlusion": occ,
     }
+    if slots_used[0]:
+        # the raw base tap + its validity: the texture-space albedo bake
+        # reuses this pass's sampling instead of running it again
+        out["base_tex_raw"] = base_tex
+        out["base_valid"] = tb["valid"]
+    return out
 
 
 # --- lights (pbr.glsl:283-352) --------------------------------------------

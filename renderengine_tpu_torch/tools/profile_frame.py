@@ -1,21 +1,26 @@
 """Where the time of one frame goes, on the GPU.
 
     python -m renderengine_tpu_torch.tools.profile_frame \
-        [--width 1920] [--height 1080] [--frames 3] [--trace DIR] [--opaque]
+        [--width 1920] [--height 1080] [--frames 3] [--trace DIR] \
+        [--opaque | --tss]
 
 Builds the procedural Sponza (260k triangles, 200 textures) at the given
 size with the default config that ``chip_smoke.py`` drives (``--opaque``:
-shadows, skybox and translucency off, the first slice's frame), renders
-two warm-up frames (the first also renders the cached shadow maps), then
-runs ``torch.profiler`` over ``--frames`` frames and prints one JSON line:
-per layer span (``frame.setup``, ``frame.bin_pack``, ``frame.raster``,
+shadows, skybox and translucency off, the first slice's frame; ``--tss``:
+the texture-space headline config, ``texture_space`` +
+``tss_preshaded_blend`` + ``dither_trilinear`` + ``sky_halfres``),
+renders two warm-up frames (the first also renders the cached shadow
+maps), then runs ``torch.profiler`` over ``--frames`` frames and prints
+one JSON line: per layer span (``frame.tss_spec``, ``frame.setup``,
+``frame.bin_pack``, ``frame.raster`` or ``frame.merged_raster``,
 ``frame.shade``, ``frame.mask``, ``frame.sky``, ``frame.peel_raster``,
 ``frame.peel_shade``, ``frame.encode``, named in ``graph/frame.py``) the
 device ms per frame; the kernels with the most device time; the wall ms
 per frame, the kernel launches per frame and the device busy share (union
 of kernel intervals over the window). It then marks the shadow maps dirty
 and profiles one more frame for the ``frame.shadow`` span (both maps'
-setup, binning, K1 and packing).
+setup, binning, K1 and packing) and, with ``--tss``, ``frame.tss_bake``
+(the visibility bake and the static light tables).
 
 ``--trace DIR`` also writes the profiler's Chrome trace there. Needs a
 CUDA card; exits non-zero without one.
@@ -32,7 +37,8 @@ from pathlib import Path
 
 import torch
 
-SPANS = ("frame.shadow", "frame.setup", "frame.bin_pack", "frame.raster",
+SPANS = ("frame.shadow", "frame.tss_bake", "frame.tss_spec", "frame.setup",
+         "frame.bin_pack", "frame.raster", "frame.merged_raster",
          "frame.shade", "frame.mask", "frame.sky", "frame.peel_raster",
          "frame.peel_shade", "frame.encode")
 
@@ -104,8 +110,11 @@ def main(argv=None) -> None:
     ap.add_argument("--frames", type=int, default=3)
     ap.add_argument("--trace", default=None,
                     help="directory for the Chrome trace")
-    ap.add_argument("--opaque", action="store_true",
-                    help="shadows, skybox and translucency off")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--opaque", action="store_true",
+                      help="shadows, skybox and translucency off")
+    mode.add_argument("--tss", action="store_true",
+                      help="the texture-space headline config")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_frame: needs a CUDA card", file=sys.stderr)
@@ -119,12 +128,16 @@ def main(argv=None) -> None:
     cfg = RenderConfig(width=args.width, height=args.height)
     if args.opaque:
         cfg = cfg.replace(shadows=False, skybox=False, translucency=False)
+    if args.tss:
+        cfg = cfg.replace(debug_views=False, texture_space=True,
+                          tss_preshaded_blend=True, dither_trilinear=True,
+                          sky_halfres=True)
     renderer = FrameRenderer(scene, cfg)
     for _ in range(2):
         renderer.render()
     torch.cuda.synchronize()
     out = {"card": _card(), "width": args.width, "height": args.height,
-           "frames": args.frames, "opaque": args.opaque,
+           "frames": args.frames, "opaque": args.opaque, "tss": args.tss,
            "profiler": profiled(renderer, args.frames, args.trace)}
     if renderer.n_shadows:
         renderer.mark_shadows_dirty()

@@ -95,8 +95,16 @@ def test_backends_agree_on_sponza_view():
     ("grid", True), ("texture_space", True), ("show_shadow_quad", True),
     ("tss_preshaded", True), ("tss_preshaded_blend", True)])
 def test_unported_features_raise(field, value):
+    """The grid and the shadow quad are not ported yet. Texture-space
+    shading is, and refuses what the JAX package asserts against: the
+    default ``debug_views=True``, and the pre-shaded switches without
+    ``texture_space``."""
     cfg = RenderConfig(width=32, height=24).replace(**{field: value})
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    err, match = {"grid": (NotImplementedError, "not ported yet"),
+                  "show_shadow_quad": (NotImplementedError, "not ported yet"),
+                  "texture_space": (ValueError, "debug_views=False")}.get(
+        field, (ValueError, "requires texture_space=True"))
+    with pytest.raises(err, match=match):
         FrameRenderer(procedural.cube_scene(width=32, height=24), cfg,
                       device="cpu")
 

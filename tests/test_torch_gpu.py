@@ -1,13 +1,15 @@
-"""Tests of the port that need a CUDA card: K1 (``csrc/raster_tile.cu``)
-against its plain PyTorch version, and a golden frame rendered through
-the kernel. They skip without a card. This file imports no JAX, so it
+"""Tests of the port that need a CUDA card: K1 and K2 (both in
+``csrc/raster_tile.cu``) against their plain PyTorch versions, and
+golden and texture-space frames rendered through the kernels. They skip
+without a card. This file imports no JAX, so it
 also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 
 Tolerance, stated: the kernel equals its plain version bit for bit (tri
 ids, material ids, depths and attributes, in every mode: single winner,
-peel, dual, each on the dense and the sparse grid): both evaluate every plane as
+peel, dual, each on the dense and the sparse grid; K2 with 2 and 4 blend
+attributes): both evaluate every plane as
 (a*px + b*py) + c with IEEE rounding and no contraction, divide with IEEE
 division and walk each tile's pairs in the same order."""
 
@@ -64,7 +66,7 @@ def _bounds(mode, prep, s, w, h):
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["single", "peel", "dual", "single_sparse",
                                   "peel_sparse", "dual_sparse"])
-@pytest.mark.parametrize("n_attrs", [0, 8])
+@pytest.mark.parametrize("n_attrs", [0, 4, 8])
 @pytest.mark.parametrize("w,h,cull,n", CASES)
 def test_kernel_matches_plain_on_card(cuda_device, w, h, cull, n, n_attrs,
                                       mode):
@@ -73,7 +75,7 @@ def test_kernel_matches_plain_on_card(cuda_device, w, h, cull, n, n_attrs,
     ap = None
     if n_attrs:
         ap = cr.attribute_planes(s, torch.from_numpy(
-            rng.uniform(-5, 5, (n, 3, 8)).astype(np.float32)))
+            rng.uniform(-5, 5, (n, 3, n_attrs)).astype(np.float32)))
     prep = cr.prepare_pairs(s, h, w, max_pairs=8192, attr_planes=ap,
                             tri_mat=torch.arange(n, dtype=torch.int32) % 5)
     b = prep.bins
@@ -144,4 +146,74 @@ def test_golden_frame_through_the_kernel(cuda_device):
     assert cr.launch_counts["raster_tile"] == before + 1
     assert int(st["pair_overflow"]) == 0
     frac, mx = goldens.golden_bar(img.cpu().numpy(), goldens.load_golden(name))
+    assert goldens.meets_bar(frac, mx), (frac, mx)
+
+
+def _prep4(rng, s, w, h):
+    """Pairs of a random setup with 4 random attributes and material ids."""
+    t = s.coef.shape[0]
+    ap = cr.attribute_planes(s, torch.from_numpy(
+        rng.uniform(-5, 5, (t, 3, 4)).astype(np.float32)))
+    return cr.prepare_pairs(s, h, w, max_pairs=8192, attr_planes=ap,
+                            tri_mat=torch.arange(t, dtype=torch.int32) % 7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_attrs_b", [2, 4])
+@pytest.mark.parametrize("w,h,cull,n", CASES)
+def test_merged_kernel_matches_plain_on_card(cuda_device, w, h, cull, n,
+                                             n_attrs_b):
+    """K2 over an opaque and a translucent table of random triangles."""
+    rng = np.random.default_rng(2)
+    pa = _prep4(rng, _random_setup(rng, n, w, h, cull), w, h)
+    pb = _prep4(rng, _random_setup(rng, n, w, h, CullMode.NONE), w, h)
+    ntx = -(-w // cr.TILE_W)
+    tabs = [pa.pair_data, pa.bins.starts, pa.bins.counts,
+            pb.pair_data, pb.bins.starts, pb.bins.counts]
+    plain = cr.merged_tiles(*tabs, ntx, w, h, n_attrs_b=n_attrs_b)
+    before = cr.launch_counts["merged_tile"]
+    kern = cr.merged_tiles(*[t.to(cuda_device) for t in tabs], ntx, w, h,
+                           n_attrs_b=n_attrs_b)
+    torch.cuda.synchronize()
+    assert cr.launch_counts["merged_tile"] == before + 1
+    assert torch.equal(kern.cpu(), plain)
+    assert (plain[:, 7 + 1] >= 0).any()          # blend layer 1 drawn
+
+
+@pytest.mark.gpu
+def test_merged_kernel_refuses_bad_inputs(cuda_device):
+    pd = torch.zeros((4, 32), device=cuda_device)
+    st = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="n_attrs_b"):
+        cr.merged_tiles(pd, st, st, pd, st, st, 2, 64, 8, n_attrs_b=3)
+    with pytest.raises(ValueError, match="32"):
+        cr.merged_tiles(pd[:, :20], st, st, pd, st, st, 2, 64, 8)
+    with pytest.raises(TypeError):
+        cr.merged_tiles(pd, st.long(), st, pd, st, st, 2, 64, 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["factored", "preshaded", "preshaded_blend"])
+def test_tss_frame_through_the_kernels(cuda_device, mode):
+    """A texture-space frame with sky and translucency on the card: one K2
+    launch, no K1 launch outside the shadow pass; within the golden bar
+    of the same frame on the CPU (plain versions). Light tables are
+    sampled per pixel (``tss_halfres_light=0``): the half-res upsample's
+    discrete same-surface test is not robust to the last bit (ROADMAP.md
+    Queue 3 F7)."""
+    name, factory, cfg = goldens.golden_cases()[4]      # skybox_full
+    flag = {"factored": {}, "preshaded": {"tss_preshaded": True},
+            "preshaded_blend": {"tss_preshaded_blend": True}}[mode]
+    cfg = cfg.replace(texture_space=True, debug_views=False,
+                      tss_halfres_light=0, **flag)
+    r = FrameRenderer(factory(), cfg, device=cuda_device)
+    before = dict(cr.launch_counts)
+    img, st = r.render()
+    torch.cuda.synchronize()
+    assert cr.launch_counts["merged_tile"] == before["merged_tile"] + 1
+    assert cr.launch_counts["raster_tile"] == before["raster_tile"] \
+        + r.n_shadows
+    assert not any(int(v) for k, v in st.items() if "overflow" in k)
+    ref, _ = FrameRenderer(factory(), cfg, device="cpu").render()
+    frac, mx = goldens.golden_bar(img.cpu().numpy(), ref.numpy())
     assert goldens.meets_bar(frac, mx), (frac, mx)

@@ -29,10 +29,12 @@ print(",".join(bad))
 print(",".join(names))
 """
 
-# the modules of the second slice (shadows, sky, translucency)
+# the modules of the second slice (shadows, sky, translucency) and the
+# third (texture-space shading)
 SLICE_MODULES = ("shading.shadow", "shading.fitting", "shading.skybox",
                  "shading.sampling", "graph.frame", "raster.cuda_raster",
-                 "tools.goldens", "tools.profile_frame")
+                 "tools.goldens", "tools.profile_frame", "shading.lightchart",
+                 "scene.scene")
 
 
 def test_port_modules_import_no_jax():
@@ -110,3 +112,22 @@ def test_non_cpu_tensor_never_takes_the_plain_path():
     with pytest.raises(ValueError, match="CUDA"):
         cuda_raster.raster_tiles(pd, st, st, 1, 32, 8, n_attrs=8,
                                  bounds=bounds, tile_map=st, dual=True)
+    p32 = torch.zeros((4, 32), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_raster.raster_tiles(p32, st, st, 1, 32, 8, n_attrs=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_raster.merged_tiles(p32, st, st, p32, st, st, 1, 32, 8,
+                                 n_attrs_b=2)
+
+
+def test_tss_frame_renderer_without_cuda_raises(monkeypatch):
+    """The texture-space entry point defaults to the card as well."""
+    from renderengine_tpu_torch.core.config import RenderConfig
+    from renderengine_tpu_torch.graph.frame import FrameRenderer
+    from renderengine_tpu_torch.scene import procedural
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = RenderConfig(width=32, height=24, debug_views=False,
+                       texture_space=True, tss_preshaded_blend=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FrameRenderer(procedural.cube_scene(width=32, height=24), cfg)

@@ -68,7 +68,15 @@ def test_int32_views_unpack_u32_words():
 
 
 def test_chart_subdivision_waits_for_its_slice():
-    sc = tproc.cube_scene(width=32, height=24)
-    with pytest.raises(NotImplementedError, match="texture-space"):
-        sc.upload(chart_subdiv=dict(viewproj=np.eye(4), width=32,
-                                    height=24, density=0.5))
+    """The texture-space slice has landed: ``upload(chart_subdiv=...)``
+    subdivides the large triangles exactly as the JAX package does (the
+    cube's faces at a density that splits them)."""
+    from renderengine_tpu_torch.scene.camera import ViewProperties
+
+    jsc, tsc = (m.cube_scene(width=32, height=24) for m in (jproc, tproc))
+    vp = ViewProperties.from_camera(tsc.camera)
+    sub = dict(viewproj=np.asarray(vp.proj) @ np.asarray(vp.view), width=32,
+               height=24, density=16.0)
+    out = tsc.upload(chart_subdiv=sub)
+    assert int(out["n_tris"]) > int(tsc.upload()["n_tris"])
+    _assert_same_dict(jsc.upload(chart_subdiv=sub), out)
