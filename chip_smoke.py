@@ -7,10 +7,13 @@ Run from the repository root on a machine with one CUDA card:
 It builds every kernel of the port's paths from the sources in the
 checkout (the tile raster K1 and the merged raster K2, both in
 ``csrc/raster_tile.cu``, one ``nvcc``), holds each kernel against its plain PyTorch version on the card (random
-triangles in every mode, then every launch shape of the paths at full
-size: the opaque 1080p pass, the sun's 4096^2 depth-only shadow pass, the
-dual-peel pass over the translucent list; K1 at 4 attributes and K2 at the
-texture-space 1080p launch), renders the seven golden configs at their
+triangles in every mode; the dense-tile stress scene of
+``tools/split_stress.py``, whose tile the kernels split into 8 work items
+and more and merge, with forced ties (phase split-stress); then every
+launch shape of the paths at full size: the opaque 1080p pass, the sun's
+4096^2 depth-only shadow pass, the dual-peel pass over the translucent
+list; K1 at 4 attributes and K2 at the texture-space 1080p launch),
+renders the seven golden configs at their
 bar, and drives two paths through the user entry point on the procedural
 Sponza (260k triangles, 200 textures of 512^2), checking their output:
 
@@ -37,7 +40,10 @@ of timings; the last line is
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 Numbers: kernel times are medians of CUDA-event-timed launches at the
-paths' launch shapes, plain-version times one CUDA-event-timed run;
+paths' launch shapes (the median of three rounds of 30), each beside the
+launch with only its densest tile left, the ratio of the two and
+``torch.profiler``'s device time; plain-version times one
+CUDA-event-timed run;
 ``bound_ms`` is the larger of (bytes moved / 3.35 TB/s) and (operations /
 67 TFLOP/s FP32), counted from this run's inputs; the texture-space bakes
 and the specular chart pass are CUDA-event-timed calls (host dispatch
@@ -47,7 +53,16 @@ driven and read just after; each kernel row's ``launches`` is that of
 the path whose launch shape it was timed at (K2 at 2 blend attributes:
 the headline frames; K2 at 4 and K1's texture-space dual peel: the
 factored frame; K1's texture-space opaque pass: the frame without
-translucency).
+translucency). Each row also carries the time of the one-block-per-tile
+kernels before the split walk, on the same card type.
+
+Measurement options (the plain run takes none): ``--item-sweep
+64,128,64x6`` times the shapes again with the kernels built at other
+pairs per work item (x: resident blocks a SM asked of ptxas);
+``--ab-parent DIR`` times an earlier tree's K1/K2 wrappers and kernels in
+turns with these at every shape and over warm frames, DIR being that
+tree's ``renderengine_tpu_torch`` package unpacked under another name
+(``parent_port``) into a directory that ``.gitignore`` lists.
 """
 
 from __future__ import annotations
@@ -72,6 +87,17 @@ SOURCE = "renderengine_tpu_torch/csrc/raster_tile.cu"
 REPLACES = "renderengine_tpu/raster/pallas_raster.py:122"
 K2_REPLACES = "renderengine_tpu/raster/pallas_raster.py:419"
 TSS_FRAMES = 3
+# the one-block-per-tile kernels' times, before the split walk, on an
+# NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md, from this script as it was
+# then): each kernel row's earlier time, and the warm frames
+BEFORE_MS = {"raster_tile": 0.7499839961528778,
+          "raster_tile_shadow": 0.48393601179122925,
+          "raster_tile_peel2": 0.11105599999427795,
+          "raster_tile_tss": 0.6909599900245667,
+          "raster_tile_tss_peel2": 0.09761599823832512,
+          "merged_tile": 0.6885760128498077,
+          "merged_tile_b4": 0.7109120190143585}
+BEFORE_FRAME_MS = {"per_pixel": [865.0, 905.0], "tss": [42.1, 39.0]}
 
 
 def log(msg: str) -> None:
@@ -99,6 +125,97 @@ def cuda_ms(fn, reps: int) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int) -> dict:
+    """Device-side duration per call of the raster kernel (K1 or K2) that
+    ``fn`` launches, from ``torch.profiler`` over ``reps`` calls (after one
+    warm-up call); None where the profiler shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    except Exception as e:  # noqa: BLE001 — the numbers are then missing
+        log(f"  torch.profiler failed ({e!r}): device time not measured")
+        return None
+    got = 0.0
+    for evt in prof.key_averages():
+        t = getattr(evt, "device_time_total", None)
+        if t is None:
+            t = getattr(evt, "cuda_time_total", 0.0)
+        if "raster_tile_kernel" in evt.key or "merged_tile_kernel" in evt.key:
+            got += t
+    return got / reps / 1e3 if got > 0 else None
+
+
+def frame_ab(render, cr, pcr, frames: int) -> dict:
+    """Warm frames of ``render`` through this tree's kernels and through
+    the parent's (``pcr``, its K1/K2 wrappers patched in), in turns:
+    parent, this, this, parent; host ms of each frame."""
+    out = {"parent": [], "this": []}
+    for who in ("parent", "this", "this", "parent"):
+        with mock.patch.object(cr, "raster_tiles", pcr.raster_tiles
+                               if who == "parent" else cr.raster_tiles), \
+                mock.patch.object(cr, "merged_tiles", pcr.merged_tiles
+                                  if who == "parent" else cr.merged_tiles):
+            for _ in range(frames):
+                t0 = time.perf_counter()
+                render()
+                torch.cuda.synchronize()
+                out[who].append((time.perf_counter() - t0) * 1e3)
+    log(f"  frames through the parent's kernels and these, in turns: {out}")
+    return out
+
+
+def solo_counts(*counts):
+    """Copies of the counts with every tile but the densest (by the sum
+    over the tables) emptied: that tile alone, in a launch of the same
+    grid."""
+    dense = int(sum(c.long() for c in counts).argmax())
+    out = []
+    for c in counts:
+        solo = torch.zeros_like(c)
+        solo[dense] = c[dense]
+        out.append(solo)
+    return out
+
+
+def time_shape(label, fn, solo_fn, reps=30, sweep=None, parent_fn=None):
+    """A launch shape's numbers: the CUDA-event median over ``reps``
+    launches (the median of three such rounds, which differ by the host's
+    noise), the densest tile alone (median over ``reps``), the ratio of
+    the two, the profiler's device time per launch of the kernel; with
+    ``sweep`` ({variant: library}) the median
+    and device time again under each build variant; with ``parent_fn``
+    (the same launch through an earlier tree's wrapper and kernel) both
+    timed in turns, parent, this, this, parent."""
+    rounds = [cuda_ms(fn, reps) for _ in range(3)]
+    ms = statistics.median(rounds)
+    densest = cuda_ms(solo_fn, reps)
+    r = {"ms": ms, "rounds_ms": rounds, "densest_tile_ms": densest,
+         "launch_over_densest": ms / densest, "device_ms": device_ms(fn, 10)}
+    if sweep:
+        from renderengine_tpu_torch.raster import cuda_raster as cr
+        default = cr._lib
+        r["item_sweep_ms"] = {}
+        try:
+            for c, lib in sweep.items():
+                cr._lib = lib
+                r["item_sweep_ms"][c] = {"ms": cuda_ms(fn, reps),
+                                         "device_ms": device_ms(fn, 10)}
+        finally:
+            cr._lib = default
+    if parent_fn is not None:
+        turns = [cuda_ms(f, reps) for f in (parent_fn, fn, fn, parent_fn)]
+        r["ab"] = {"parent_ms": [turns[0], turns[3]],
+                   "ms": [turns[1], turns[2]],
+                   "parent_device_ms": device_ms(parent_fn, 10)}
+    log(f"  times [{label}]: {r}")
+    return r
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -224,6 +341,20 @@ def k1_bound(pairs, n_slots, cpp, n_attrs, wins, demotes=0, peel=False,
 
 
 def main() -> None:
+    # --item-sweep 64,128,64x6: also time the launch shapes with the
+    # kernels built at those pairs per work item (x: resident blocks per
+    # SM asked of ptxas), a measurement knob
+    sweep_sizes = []
+    if "--item-sweep" in sys.argv:
+        arg = sys.argv[sys.argv.index("--item-sweep") + 1]
+        sweep_sizes = [tuple(int(x) for x in v.split("x")) + (None,)
+                       for v in arg.split(",")]
+        sweep_sizes = [(v[0], v[1]) for v in sweep_sizes]
+    # --ab-parent DIR: DIR holds an earlier tree's port package (renamed);
+    # its K1/K2 wrappers are timed beside these at every launch shape
+    ab_dir = None
+    if "--ab-parent" in sys.argv:
+        ab_dir = Path(sys.argv[sys.argv.index("--ab-parent") + 1]).resolve()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs a CUDA card", file=sys.stderr)
@@ -254,16 +385,39 @@ def main() -> None:
         from renderengine_tpu_torch.shading import lightchart
         t0 = time.time()
         so = cr.build()
-        log(f"phase build: {so.name} in {time.time() - t0:.1f} s")
+        log(f"phase build: {so.name} in {time.time() - t0:.1f} s, "
+            f"{cr._library().item_pairs} pairs per work item")
         for ln in so.with_suffix(".log").read_text().splitlines():
+            if "Compiling entry" in ln:
+                log(f"  ptxas: {ln.split(chr(39))[1][:100]}")
             if "registers" in ln or "spill" in ln:
                 log(f"  ptxas: {ln.strip()}")
+        pcr = None
+        if ab_dir is not None:
+            import importlib.util
+            spec = importlib.util.spec_from_file_location(
+                "parent_port", ab_dir / "__init__.py",
+                submodule_search_locations=[str(ab_dir)])
+            sys.modules["parent_port"] = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(sys.modules["parent_port"])
+            import parent_port.raster.cuda_raster as pcr
+            log(f"phase build: parent kernels {pcr.build().name}")
+        sweep = {}
+        if sweep_sizes:              # one nvcc per size, all at once
+            from concurrent.futures import ThreadPoolExecutor
+            with ThreadPoolExecutor(len(sweep_sizes)) as ex:
+                list(ex.map(lambda v: cr.build(*v), sweep_sizes))
+            sweep = {"x".join(str(x) for x in v if x): cr.load(*v)
+                     for v in sweep_sizes}
+            log(f"phase build: item sweep libraries {sorted(sweep)} in "
+                f"{time.time() - t0:.1f} s")
     except Exception as e:  # noqa: BLE001 — every phase is fatal
         fail(phase, e)
 
     def reset_counts():
-        for k in cr.launch_counts:
-            cr.launch_counts[k] = 0
+        for counts in (cr.launch_counts, cr.helper_counts):
+            for k in counts:
+                counts[k] = 0
         cr.variant_counts.clear()
 
     # phase 2: K1 against its plain version on random triangles, in every
@@ -359,6 +513,65 @@ def main() -> None:
     except Exception as e:  # noqa: BLE001
         fail(phase, e)
 
+    # phase 2c: the dense-tile stress scene through both kernels: one tile
+    # of at least 8 work items, ties (duplicated triangles, -0.0 and
+    # depth-1.0 fragments, peel bounds equal to fragment depths), every K1
+    # mode on the dense and the sparse grid and a row slice; K2 at 2 and 4
+    # blend attributes. Everything bit-exact, signs of zero included.
+    phase = "split-stress"
+    try:
+        from renderengine_tpu_torch.tools import split_stress as ss
+        item = cr._library().item_pairs
+        n_dense = 8 * item + 64
+        s_ntx = ss.WIDTH // cr.TILE_W
+        n_checked = 0
+
+        def same(a, b):
+            return torch.equal(a, b) and torch.equal(torch.signbit(a),
+                                                     torch.signbit(b))
+
+        for n_attrs in (0, 4, 8):
+            for y0, sh in ((0, None), (8, 32)):
+                prep = ss.stress_pairs(0, n_attrs, n_dense=n_dense, y0=y0,
+                                       slice_h=sh, device=dev)
+                b = prep.bins
+                _, count = ss.densest_tile(prep)
+                if count <= 8 * item:
+                    raise AssertionError(f"stress tile of {count} pairs")
+                bds = ss.stress_bounds(prep, y0)
+                sparse = cr.sparse_tile_map(
+                    b.counts, max(1, int((b.counts > 0).sum()) - 1))
+                for mode in ("single", "peel", "dual"):
+                    for tile_map in (None, sparse):
+                        args = (prep.pair_data, b.starts, b.counts, s_ntx,
+                                ss.WIDTH, ss.HEIGHT, y0, n_attrs,
+                                None if mode == "single" else bds[mode],
+                                tile_map, mode == "dual")
+                        if not same(cr.raster_tiles(*args),
+                                    cr._raster_tiles_plain(*args)):
+                            raise AssertionError(
+                                f"K1 split walk differs: n_attrs {n_attrs}"
+                                f" y0 {y0} {mode} sparse "
+                                f"{tile_map is not None}")
+                        n_checked += 1
+        pa = ss.stress_pairs(0, 4, n_dense=n_dense, device=dev)
+        pb = ss.stress_pairs(1, 4, n_dense=n_dense, device=dev)
+        for nab in (2, 4):
+            k2_check(cr, pa, pb, s_ntx, ss.WIDTH, ss.HEIGHT, nab,
+                     f"split stress, n_attrs_b={nab}")
+            tabs = (pa.pair_data, pa.bins.starts, pa.bins.counts,
+                    pb.pair_data, pb.bins.starts, pb.bins.counts, s_ntx,
+                    ss.WIDTH, ss.HEIGHT, 0, nab)
+            if not same(cr.merged_tiles(*tabs),
+                        cr._merged_tiles_plain(*tabs)):
+                raise AssertionError("K2 split walk differs in a sign")
+            n_checked += 1
+        log(f"phase split-stress: {n_checked} launches bit-exact (signs of "
+            f"zero too), densest tile {count} pairs = "
+            f"{-(-count // item)} work items of {item}")
+    except Exception as e:  # noqa: BLE001
+        fail(phase, e)
+
     # phase 3: golden configs at 128x96 through the entry point, on the card
     phase = "goldens"
     try:
@@ -410,14 +623,16 @@ def main() -> None:
         n_tiles = int(b.counts.shape[0])
         max_count = int(b.counts.max())
         args = (prep.pair_data, b.starts, b.counts, ntx, SPONZA_W, SPONZA_H)
-        k1_ms = cuda_ms(lambda: cr.raster_tiles(*args, n_attrs=8), 30)
-        # the densest tile alone: the serial floor of one block per tile
-        solo = torch.zeros_like(b.counts)
-        dense_tile = int(b.counts.argmax())
-        solo[dense_tile] = b.counts[dense_tile]
+        # the densest tile alone, in a launch of the same grid: before the
+        # split walk, the serial floor of one block per tile
+        (solo,) = solo_counts(b.counts)
         solo_args = (prep.pair_data, b.starts, solo, ntx, SPONZA_W, SPONZA_H)
-        densest_ms = cuda_ms(lambda: cr.raster_tiles(*solo_args, n_attrs=8),
-                             30)
+        times = {"raster_tile": time_shape(
+            "per-pixel opaque", lambda: cr.raster_tiles(*args, n_attrs=8),
+            lambda: cr.raster_tiles(*solo_args, n_attrs=8), sweep=sweep,
+            parent_fn=pcr and (lambda: pcr.raster_tiles(*args, n_attrs=8)))}
+        k1_ms = times["raster_tile"]["ms"]
+        densest_ms = times["raster_tile"]["densest_tile_ms"]
         bound_ms, bound_by, ops, bytes_moved = k1_bound(
             pairs, n_tiles, prep.pair_data.shape[1], 8, wins)
         log(f"phase k1-sponza: {pairs} pairs over {n_tiles} tiles (max "
@@ -498,7 +713,14 @@ def main() -> None:
         sh_pairs, sh_tiles = int(bs.counts.sum()), int(bs.counts.shape[0])
         sh_args = (prep_sh.pair_data, bs.starts, bs.counts, ntx_sh, e_sh,
                    e_sh)
-        sh_ms = cuda_ms(lambda: cr.raster_tiles(*sh_args, n_attrs=0), 10)
+        (sh_solo,) = solo_counts(bs.counts)
+        sh_solo_args = sh_args[:2] + (sh_solo,) + sh_args[3:]
+        times["raster_tile_shadow"] = time_shape(
+            "shadow", lambda: cr.raster_tiles(*sh_args, n_attrs=0),
+            lambda: cr.raster_tiles(*sh_solo_args, n_attrs=0), sweep=sweep,
+            parent_fn=pcr and (lambda: pcr.raster_tiles(*sh_args,
+                                                        n_attrs=0)))
+        sh_ms = times["raster_tile_shadow"]["ms"]
         sh_bound_ms, sh_bound_by, sh_ops, sh_bytes = k1_bound(
             sh_pairs, sh_tiles, prep_sh.pair_data.shape[1], 0, st_s["wins"])
         log(f"phase k1-shadow: map {sun}: {sh_pairs} pairs over {sh_tiles} "
@@ -543,7 +765,13 @@ def main() -> None:
         max_err["peel2"] = max(max_err["peel2"], err)
         pl_args = (prep_t.pair_data, bt.starts, bt.counts, ntx, SPONZA_W,
                    SPONZA_H, 0, 8, bounds, tile_map, True)
-        pl_ms = cuda_ms(lambda: cr.raster_tiles(*pl_args), 30)
+        (pl_solo,) = solo_counts(bt.counts)
+        pl_solo_args = pl_args[:2] + (pl_solo,) + pl_args[3:]
+        times["raster_tile_peel2"] = time_shape(
+            "per-pixel dual peel", lambda: cr.raster_tiles(*pl_args),
+            lambda: cr.raster_tiles(*pl_solo_args), sweep=sweep,
+            parent_fn=pcr and (lambda: pcr.raster_tiles(*pl_args)))
+        pl_ms = times["raster_tile_peel2"]["ms"]
         pl_pairs = int(bt.counts.sum() if tile_map is None
                        else bt.counts[tile_map.long()].sum())
         pl_bound_ms, pl_bound_by, pl_ops, pl_bytes = k1_bound(
@@ -567,25 +795,31 @@ def main() -> None:
         opaque_v, shadow_v, peel_v = ((8, False, False), (0, False, False),
                                       (8, True, True))
         reset_counts()
-        frame_ms, per_frame = [], []
+        frame_ms, per_frame, helpers = [], [], []
         for _ in range(N_FRAMES):
             before = dict(cr.variant_counts)
+            h_before = dict(cr.helper_counts)
             t0 = time.perf_counter()
             img, stats = renderer.render()
             torch.cuda.synchronize()
             frame_ms.append((time.perf_counter() - t0) * 1e3)
             per_frame.append({v: cr.variant_counts[v] - before.get(v, 0)
                               for v in (opaque_v, shadow_v, peel_v)})
+            helpers.append({k: cr.helper_counts[k] - h_before[k]
+                            for k in cr.helper_counts})
         total = cr.launch_counts["raster_tile"]
         launches = {v: cr.variant_counts[v]
                     for v in (opaque_v, shadow_v, peel_v)}
-        log(f"phase main-path: {total} launches {per_frame}, "
-            f"frame ms {frame_ms}")
+        log(f"phase main-path: {total} launches {per_frame}, workspace "
+            f"zeroings {helpers}, frame ms {frame_ms} (before the split walk, warm: "
+            f"{BEFORE_FRAME_MS['per_pixel']})")
         for i, pf in enumerate(per_frame):
             want = {opaque_v: 1, peel_v: 1, shadow_v: n_maps if i == 0 else 0}
             if pf != want:
                 raise AssertionError(f"frame {i}: K1 launches {pf}, "
                                      f"expected {want}")
+            if helpers[i]["workspace_zero"] > sum(pf.values()):
+                raise AssertionError(f"frame {i}: zeroings {helpers[i]}")
         if total != sum(launches.values()):
             raise AssertionError("a K1 launch of an unexpected shape")
         over = {k: int(v) for k, v in stats.items() if "overflow" in k}
@@ -655,6 +889,9 @@ def main() -> None:
             f"max {mx}/255")
         if not goldens.meets_bar(frac, mx):
             raise AssertionError("K1 frame misses the bar against plain K1")
+        frames_ab = {}
+        if pcr is not None:
+            frames_ab["per_pixel"] = frame_ab(renderer.render, cr, pcr, 2)
     except Exception as e:  # noqa: BLE001
         fail(phase, e)
 
@@ -710,7 +947,13 @@ def main() -> None:
         pairs_a = int(ba.counts.sum())
         ta_args = (prep_a.pair_data, ba.starts, ba.counts, ntx, SPONZA_W,
                    SPONZA_H, 0, 4)
-        ta_ms = cuda_ms(lambda: cr.raster_tiles(*ta_args), 30)
+        (ta_solo,) = solo_counts(ba.counts)
+        ta_solo_args = ta_args[:2] + (ta_solo,) + ta_args[3:]
+        times["raster_tile_tss"] = time_shape(
+            "TSS opaque", lambda: cr.raster_tiles(*ta_args),
+            lambda: cr.raster_tiles(*ta_solo_args), sweep=sweep,
+            parent_fn=pcr and (lambda: pcr.raster_tiles(*ta_args)))
+        ta_ms = times["raster_tile_tss"]["ms"]
         ta_bound, ta_by, ta_ops, ta_bytes = k1_bound(
             pairs_a, n_tiles, prep_a.pair_data.shape[1], 4, st_a["wins"])
         log(f"phase k1-tss: {pairs_a} pairs over {n_tiles} tiles (max "
@@ -740,7 +983,15 @@ def main() -> None:
             k2_args = (prep_a.pair_data, ba.starts, ba.counts,
                        prep_b.pair_data, bb.starts, bb.counts, ntx,
                        SPONZA_W, SPONZA_H, 0, nab)
-            k2_ms = cuda_ms(lambda: cr.merged_tiles(*k2_args), 30)
+            (sa, sb) = solo_counts(ba.counts, bb.counts)
+            k2_solo = (k2_args[:2] + (sa,) + k2_args[3:5] + (sb,)
+                       + k2_args[6:])
+            name = "merged_tile" if nab == 2 else "merged_tile_b4"
+            times[name] = time_shape(
+                f"K2 n_attrs_b={nab}", lambda: cr.merged_tiles(*k2_args),
+                lambda: cr.merged_tiles(*k2_solo), sweep=sweep,
+                parent_fn=pcr and (lambda: pcr.merged_tiles(*k2_args)))
+            k2_ms = times[name]["ms"]
             bound = k2_bound(pairs_a, pairs_b, n_tiles, nab, st_k2["wins"],
                              st_k2["wins_b"], st_k2["demotes"])
             k2[nab] = {"ms": k2_ms, "plain_ms": k2_plain_ms,
@@ -765,7 +1016,13 @@ def main() -> None:
         max_err["tss_peel2"] = max(max_err["tss_peel2"], err)
         tp_args = (prep_b.pair_data, bb.starts, bb.counts, ntx, SPONZA_W,
                    SPONZA_H, 0, 4, tb_bounds, None, True)
-        tp_ms = cuda_ms(lambda: cr.raster_tiles(*tp_args), 30)
+        (tp_solo,) = solo_counts(bb.counts)
+        tp_solo_args = tp_args[:2] + (tp_solo,) + tp_args[3:]
+        times["raster_tile_tss_peel2"] = time_shape(
+            "TSS dual peel", lambda: cr.raster_tiles(*tp_args),
+            lambda: cr.raster_tiles(*tp_solo_args), sweep=sweep,
+            parent_fn=pcr and (lambda: pcr.raster_tiles(*tp_args)))
+        tp_ms = times["raster_tile_tss_peel2"]["ms"]
         tp_bound, tp_by, tp_ops, tp_bytes = k1_bound(
             pairs_b, n_tiles, 32, 4, st_tp["wins"], st_tp["demotes"],
             peel=True, dual=True)
@@ -804,9 +1061,10 @@ def main() -> None:
                 return r.render()[0]
 
         reset_counts()
-        tss_ms, tss_per_frame, tss_stats = [], [], []
+        tss_ms, tss_per_frame, tss_stats, tss_helpers = [], [], [], []
         for _ in range(TSS_FRAMES):
             before = dict(cr.variant_counts)
+            h_before = dict(cr.helper_counts)
             t0 = time.perf_counter()
             timg, tst = tss_r.render()
             torch.cuda.synchronize()
@@ -814,6 +1072,8 @@ def main() -> None:
             tss_per_frame.append({str(v): cr.variant_counts[v]
                                   - before.get(v, 0) for v in tss_variants
                                   if cr.variant_counts[v] - before.get(v, 0)})
+            tss_helpers.append({k: cr.helper_counts[k] - h_before[k]
+                                for k in cr.helper_counts})
             tss_stats.append({k: v.tolist() for k, v in tst.items()})
         path_launches = {"headline": path_counts()}
         vis_ms = cuda_ms(lambda: (lightchart.bake_visibility(
@@ -821,7 +1081,9 @@ def main() -> None:
                   "mat_id": tsd["chart_mat"][15]}, tss_r._shadow_maps,
             tparams["shadow_viewproj"], tss_r._shadow_lights),
             lightchart.static_tables(tsd, tcfg, tss_r._baked_exposure)), 2)
-        log(f"phase tss-path: frame ms {tss_ms}, launches {tss_per_frame}; "
+        log(f"phase tss-path: frame ms {tss_ms} (before the split walk, warm: "
+            f"{BEFORE_FRAME_MS['tss']}), launches {tss_per_frame}, workspace "
+            f"zeroings {tss_helpers}; "
             f"specular chart pass {spec_ms:.3f} ms, visibility bake + static"
             f" tables {vis_ms:.2f} ms on the card; counters {tss_stats}; "
             f"shadow overflow {tss_r.shadow_overflow}")
@@ -829,6 +1091,9 @@ def main() -> None:
             want = {str(k2_v2): 1}
             if i == 0:
                 want[str(shadow_v)] = tss_r.n_shadows
+            if tss_helpers[i]["workspace_zero"] > sum(pf.values()):
+                raise AssertionError(f"TSS frame {i}: zeroings "
+                                     f"{tss_helpers[i]}")
             if pf != want:
                 raise AssertionError(f"TSS frame {i}: launches {pf}, "
                                      f"expected {want}")
@@ -867,6 +1132,8 @@ def main() -> None:
         log(f"phase tss-path: through the plain versions identical: {same}")
         if not same:
             raise AssertionError("the kernel frame differs from the plain one")
+        if pcr is not None:
+            frames_ab["tss"] = frame_ab(tss_r.render, cr, pcr, 3)
         del tss_r, tsd, unm
         torch.cuda.empty_cache()
         modes = {}
@@ -885,6 +1152,7 @@ def main() -> None:
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
             path_launches[mode] = path_counts()
+            path_helpers = dict(cr.helper_counts)
             got = {str(v): n for v, n in path_launches[mode].items() if n}
             want = {str(v): n for v, n in want.items()}
             want[str(shadow_v)] = r.n_shadows
@@ -896,6 +1164,7 @@ def main() -> None:
             dm = np.abs(m_np[..., :3].astype(np.int32)
                         - timg_np[..., :3].astype(np.int32)).max(-1)
             modes[mode] = {"frame_ms": ms, "launches": got,
+                           "workspace_zeroings": path_helpers,
                            "vs_headline_mean": float(dm.mean()),
                            "lit": float((m_np[..., :3].max(-1) > 0).mean()),
                            "plain_identical": same,
@@ -915,12 +1184,18 @@ def main() -> None:
         fail(phase, e)
 
     def row(name, launches, err, ms, plain, bound, by, k2=False):
+        t = times[name]
         return {"name": name, "route": "cuda",
                 "source": SOURCE,
                 "replaces": K2_REPLACES if k2 else REPLACES,
                 "launches": launches, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-                "library_ms": None}
+                "library_ms": None, "before_ms": BEFORE_MS[name],
+                "densest_tile_ms": t["densest_tile_ms"],
+                "launch_over_densest": t["launch_over_densest"],
+                "device_ms": t["device_ms"],
+                **({"item_sweep_ms": t["item_sweep_ms"]}
+                   if "item_sweep_ms" in t else {})}
 
     kernels = [
         row("raster_tile", launches[opaque_v], max_err["opaque"], k1_ms,
@@ -966,10 +1241,14 @@ def main() -> None:
         "opaque_frame_launches": opaque_launches,
         "launches_per_frame": [{str(k): v for k, v in pf.items()}
                                for pf in per_frame],
+        "workspace_zeroings_per_frame": helpers,
+        "before_frame_ms": BEFORE_FRAME_MS, "kernel_times": times,
+        "frames_ab": frames_ab,
         "sky_share": sky_share,
         "penumbra_tile_budget": rcfg.penumbra_tile_budget,
         "blend_tile_budget": rcfg.blend_tile_budget, "scene_tris": n_tris, "textures": n_tex,
         "tss": {"frame_ms": tss_ms, "launches_per_frame": tss_per_frame,
+                "workspace_zeroings_per_frame": tss_helpers,
                 "counters": tss_stats, "init_s": tss_init_s,
                 "upload_bake_ms": bake_ms, "visibility_bake_ms": vis_ms,
                 "spec_pass_ms": spec_ms, "tris": tss_tris,

@@ -69,6 +69,9 @@ K2_ATTRS_B = (2, 4)       # attribute prefixes K2's blend layers interpolate
 # and the same launches by variant: (n_attrs, peel, dual) for K1,
 # ("merged", n_attrs_b) for K2
 launch_counts = {"raster_tile": 0, "merged_tile": 0}
+# other device work of the wrappers, counted apart: the zeroing of a new
+# or grown workspace (a memset, once per stream and size)
+helper_counts = {"workspace_zero": 0}
 variant_counts: collections.Counter = collections.Counter()
 
 _lib = None
@@ -149,12 +152,23 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the kernels build on a CUDA host")
 
 
-def build() -> Path:
+def build(item_pairs: int | None = None,
+          min_blocks: int | None = None) -> Path:
     """Compile ``csrc/raster_tile.cu`` into ``build/`` (once per source
-    content) and return the shared library's path. The ptxas report
-    (registers, shared memory, spills) is kept beside it as ``.log``."""
+    content and variant) and return the shared library's path. The ptxas
+    report (registers, shared memory, spills) is kept beside it as
+    ``.log``. ``item_pairs`` (pairs per work item) and ``min_blocks``
+    (resident blocks per SM asked of ptxas) override the source's
+    defaults: measurement knobs, the port uses the defaults."""
     src = SOURCE.read_bytes()
     tag = hashlib.sha1(src).hexdigest()[:12]
+    defines = []
+    if item_pairs is not None:
+        tag += f"_c{item_pairs}"
+        defines.append(f"-DITEM_PAIRS={item_pairs}")
+    if min_blocks is not None:
+        tag += f"_m{min_blocks}"
+        defines.append(f"-DMIN_BLOCKS={min_blocks}")
     so = BUILD_DIR / f"libraster_tile_{tag}.so"
     if so.exists():
         return so
@@ -162,7 +176,7 @@ def build() -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
+           "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v", *defines,
            "-shared", "-Xcompiler", "-fPIC", "-o", tmp, str(SOURCE)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
@@ -173,18 +187,58 @@ def build() -> Path:
     return so
 
 
+def load(item_pairs: int | None = None, min_blocks: int | None = None):
+    """Build (if needed) and load the kernels' library, its entry points
+    typed for ctypes."""
+    lib = ctypes.CDLL(str(build(item_pairs, min_blocks)))
+    lib.raster_item_pairs.restype = ctypes.c_int
+    lib.raster_workspace_bytes.restype = ctypes.c_longlong
+    lib.raster_workspace_bytes.argtypes = [ctypes.c_int, ctypes.c_longlong]
+    lib.raster_tile_launch.restype = ctypes.c_int
+    lib.raster_tile_launch.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+    lib.merged_tile_launch.restype = ctypes.c_int
+    lib.merged_tile_launch.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+    lib.item_pairs = lib.raster_item_pairs()
+    return lib
+
+
 def _library():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        lib.raster_tile_launch.restype = ctypes.c_int
-        lib.raster_tile_launch.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-        lib.merged_tile_launch.restype = ctypes.c_int
-        lib.merged_tile_launch.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-        _lib = lib
+        _lib = load()
     return _lib
+
+
+# per (library, device, stream): [workspace, slots, rows, parity]
+_workspaces: dict = {}
+
+
+def _workspace(lib, dev, stream: int, n_slots: int, rows: int) -> list:
+    """The split walk's scratch for a launch on ``stream``, sized from
+    shapes alone (no device read): counters, a queue of chunks and 64-bit
+    keys (``raster_workspace_bytes`` in the source). One per stream, kept
+    across launches: it starts zeroed and each launch leaves it so, using
+    one of two counter sets by ``parity``. A launch larger than it gets a
+    new zeroed one (counted in ``helper_counts``)."""
+    key = (id(lib), dev.index, stream)
+    w = _workspaces.get(key)
+    if w is None or w[1] < n_slots or w[2] < rows:
+        slots = max(n_slots, w[1] if w else 0)
+        cap = max(rows, w[2] if w else 0)
+        nbytes = lib.raster_workspace_bytes(slots, cap)
+        w = [torch.zeros(-(-nbytes // 16) * 2, dtype=torch.int64,
+                         device=dev), slots, cap, 0]
+        _workspaces[key] = w
+        helper_counts["workspace_zero"] += 1
+    return w
+
+
+def _check_aligned(*tables) -> None:
+    """The kernels stage pair rows with 16-byte bulk copies."""
+    if any(t.data_ptr() % 16 for t in tables):
+        raise ValueError("pair tables must start on a 16-byte boundary")
 
 
 def _n_planes(n_attrs: int, dual: bool = False) -> int:
@@ -271,19 +325,25 @@ def raster_tiles(pair_data: torch.Tensor, starts: torch.Tensor,
     if not all(t.is_contiguous()
                for t in [pair_data, starts, counts] + extra):
         raise ValueError("K1 inputs must be contiguous")
+    _check_aligned(pair_data)
     n_sel = n_tiles if tile_map is None else tile_map.shape[0]
     out = torch.empty((n_sel, _n_planes(n_attrs, dual), TILE_H * TILE_W),
                       dtype=torch.float32, device=dev)
+    rows = pair_data.shape[0]
+    lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _library().raster_tile_launch(
+        ws = _workspace(lib, dev, stream, n_sel, rows)
+        rc = lib.raster_tile_launch(
             pair_data.data_ptr(), starts.data_ptr(), counts.data_ptr(),
             None if tile_map is None else tile_map.data_ptr(),
             None if bounds is None else bounds.data_ptr(),
-            out.data_ptr(), n_sel, ntx, width, full_height, y0, n_attrs,
-            int(dual), stream)
+            out.data_ptr(), ws[0].data_ptr(), ws[1], ws[2], ws[3], n_sel,
+            rows, ntx, width, full_height, y0, n_attrs, int(dual), stream)
     if rc != 0:
         raise RuntimeError(f"raster_tile launch failed: CUDA error {rc}")
+    if n_sel:
+        ws[3] ^= 1            # the launch zeroed the other counter set
     launch_counts["raster_tile"] += 1
     variant_counts[(n_attrs, bounds is not None, dual)] += 1
     return out
@@ -394,6 +454,65 @@ def _raster_tiles_plain(pair_data, starts, counts, ntx: int, width: int,
         stats["wins"] = int(wins)
         stats["demotes"] = int(demotes)
     return out
+
+
+def _clear_layer_like(lay: torch.Tensor) -> torch.Tensor:
+    """The empty layer (depth 1, tri -1, everything else 0) in ``lay``'s
+    shape [n, planes, 256]."""
+    clear = torch.zeros_like(lay)
+    clear[:, 0] = 1.0
+    clear[:, 1] = -1.0
+    return clear
+
+
+def _nearer(c: torch.Tensor, best: torch.Tensor) -> torch.Tensor:
+    """Per pixel, whether layer ``c`` precedes ``best`` in (depth, tri)
+    order. Within a tile, ascending triangle ids are ascending pair
+    indices, and compares take -0.0 equal to +0.0, as the walk does."""
+    return (c[:, 0] < best[:, 0]) | ((c[:, 0] == best[:, 0])
+                                     & (c[:, 1] < best[:, 1]))
+
+
+def merge_chunk_planes(parts, n_num: int, dual: bool = False):
+    """Merge the finished planes of the chunks of each tile's span into
+    the planes of the whole walk, by the rule the kernels' split walk
+    relies on: layer 1 = the least (depth, tri) of the chunks' layer 1;
+    layer 2 = the least (depth, tri) of every chunk's layers 1 and 2 with
+    depth strictly greater than layer 1's. ``parts``: the [n, (3 + n_num)
+    * layers, 256] results of ``_raster_tiles_plain`` over the chunks (one
+    tile span cut by editing starts/counts). Exact because every plane of
+    a layer is a function of its (pair, pixel) alone. For tests: the
+    kernels merge keys on the card."""
+    pp = 3 + n_num
+    l1 = parts[0][:, :pp]
+    for p in parts[1:]:
+        c = p[:, :pp]
+        l1 = torch.where(_nearer(c, l1)[:, None], c, l1)
+    if not dual:
+        return l1.clone()
+    l2 = _clear_layer_like(l1)
+    for p in parts:
+        for c in (p[:, :pp], p[:, pp:2 * pp]):
+            take = (c[:, 0] > l1[:, 0]) & _nearer(c, l2)
+            l2 = torch.where(take[:, None], c, l2)
+    return torch.cat([l1, l2], 1)
+
+
+def merge_chunk_merged(parts, n_attrs_b: int):
+    """``merge_chunk_planes`` for K2's planes (``_merged_tiles_plain`` over
+    chunks of both tables' spans): table A's single winner and table B's
+    two layers merge apart, then the fold voids each blend layer deeper
+    than the merged opaque depth. For tests."""
+    pa = 3 + K2_ATTRS
+    a = merge_chunk_planes([p[:, :pa] for p in parts], K2_ATTRS)
+    b = merge_chunk_planes([p[:, pa:] for p in parts], n_attrs_b, dual=True)
+    pb = 3 + n_attrs_b
+    layers = []
+    for li in range(2):
+        lay = b[:, li * pb:(li + 1) * pb]
+        void = (lay[:, 0] > a[:, 0])[:, None]
+        layers.append(torch.where(void, _clear_layer_like(lay), lay))
+    return torch.cat([a] + layers, 1)
 
 
 # --- the raster pass ---------------------------------------------------------
@@ -524,17 +643,23 @@ def merged_tiles(pairs_a: torch.Tensor, starts_a: torch.Tensor,
                          "tables")
     if not all(t.is_contiguous() for t in ints + [pairs_a, pairs_b]):
         raise ValueError("K2 inputs must be contiguous")
+    _check_aligned(pairs_a, pairs_b)
     out = torch.empty((n_tiles, _merged_planes(n_attrs_b), TILE_H * TILE_W),
                       dtype=torch.float32, device=dev)
+    rows = pairs_a.shape[0] + pairs_b.shape[0]
+    lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _library().merged_tile_launch(
+        ws = _workspace(lib, dev, stream, n_tiles, rows)
+        rc = lib.merged_tile_launch(
             pairs_a.data_ptr(), starts_a.data_ptr(), counts_a.data_ptr(),
             pairs_b.data_ptr(), starts_b.data_ptr(), counts_b.data_ptr(),
-            out.data_ptr(), n_tiles, ntx, width, full_height, y0, n_attrs_b,
-            stream)
+            out.data_ptr(), ws[0].data_ptr(), ws[1], ws[2], ws[3], n_tiles,
+            rows, ntx, width, full_height, y0, n_attrs_b, stream)
     if rc != 0:
         raise RuntimeError(f"merged_tile launch failed: CUDA error {rc}")
+    if n_tiles:
+        ws[3] ^= 1            # the launch zeroed the other counter set
     launch_counts["merged_tile"] += 1
     variant_counts[("merged", n_attrs_b)] += 1
     return out

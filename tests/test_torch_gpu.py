@@ -11,7 +11,9 @@ ids, material ids, depths and attributes, in every mode: single winner,
 peel, dual, each on the dense and the sparse grid; K2 with 2 and 4 blend
 attributes): both evaluate every plane as
 (a*px + b*py) + c with IEEE rounding and no contraction, divide with IEEE
-division and walk each tile's pairs in the same order."""
+division and select the same fragments (the kernels split a dense tile's
+walk into work items and merge them exactly; the stress-scene cases hold
+that, ties included)."""
 
 import numpy as np
 import pytest
@@ -22,6 +24,7 @@ from renderengine_tpu_torch.graph.frame import FrameRenderer
 from renderengine_tpu_torch.raster import cuda_raster as cr
 from renderengine_tpu_torch.raster.setup import restrict_rows, triangle_setup
 from renderengine_tpu_torch.tools import goldens
+from renderengine_tpu_torch.tools import split_stress as ss
 
 torch.set_num_threads(2)
 
@@ -217,3 +220,115 @@ def test_tss_frame_through_the_kernels(cuda_device, mode):
     ref, _ = FrameRenderer(factory(), cfg, device="cpu").render()
     frac, mx = goldens.golden_bar(img.cpu().numpy(), ref.numpy())
     assert goldens.meets_bar(frac, mx), (frac, mx)
+
+
+def _stress_dense(cuda_device):
+    """Triangles in the stress tile: enough for at least 8 work items."""
+    return 8 * cr._library().item_pairs + 64
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["single", "peel", "dual", "single_sparse",
+                                  "peel_sparse", "dual_sparse", "single_y0",
+                                  "dual_y0"])
+@pytest.mark.parametrize("n_attrs", [0, 4, 8])
+def test_kernel_splits_a_dense_tile_exactly(cuda_device, n_attrs, mode):
+    """The stress scene: one tile of hundreds of pairs (>= 8 work items)
+    with duplicated triangles at equal depth, -0.0 and depth-1.0 fragments
+    and peel bounds equal to fragment depths; also on the sparse grid and
+    on a row slice (y0 = 8)."""
+    base = mode.split("_")[0]
+    y0, sh = (8, 32) if mode.endswith("y0") else (0, None)
+    prep = ss.stress_pairs(0, n_attrs, n_dense=_stress_dense(cuda_device),
+                           y0=y0, slice_h=sh)
+    b = prep.bins
+    _, count = ss.densest_tile(prep)
+    assert count > 8 * cr._library().item_pairs
+    bounds = None if base == "single" else ss.stress_bounds(prep, y0)[base]
+    tile_map = None
+    if mode.endswith("sparse"):
+        tile_map = cr.sparse_tile_map(b.counts,
+                                      max(1, int((b.counts > 0).sum()) - 1))
+    args = (ss.WIDTH // cr.TILE_W, ss.WIDTH, ss.HEIGHT, y0, n_attrs)
+    plain = cr.raster_tiles(prep.pair_data, b.starts, b.counts, *args,
+                            bounds=bounds, tile_map=tile_map,
+                            dual=base == "dual")
+    on = lambda t: None if t is None else t.to(cuda_device)  # noqa: E731
+    kern = cr.raster_tiles(on(prep.pair_data), on(b.starts), on(b.counts),
+                           *args, bounds=on(bounds), tile_map=on(tile_map),
+                           dual=base == "dual")
+    torch.cuda.synchronize()
+    assert torch.equal(kern.cpu(), plain)
+    assert torch.equal(torch.signbit(kern.cpu()), torch.signbit(plain))
+    assert (plain[:, 1] >= 0).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_attrs_b", [2, 4])
+def test_merged_kernel_splits_a_dense_tile_exactly(cuda_device, n_attrs_b):
+    n = _stress_dense(cuda_device)
+    pa = ss.stress_pairs(0, 4, n_dense=n)
+    pb = ss.stress_pairs(1, 4, n_dense=n)
+    tabs = [pa.pair_data, pa.bins.starts, pa.bins.counts,
+            pb.pair_data, pb.bins.starts, pb.bins.counts]
+    args = (ss.WIDTH // cr.TILE_W, ss.WIDTH, ss.HEIGHT, 0, n_attrs_b)
+    plain = cr.merged_tiles(*tabs, *args)
+    kern = cr.merged_tiles(*[t.to(cuda_device) for t in tabs], *args)
+    torch.cuda.synchronize()
+    assert torch.equal(kern.cpu(), plain)
+    assert torch.equal(torch.signbit(kern.cpu()), torch.signbit(plain))
+    assert (plain[:, 7 + 1] >= 0).any()
+
+
+@pytest.mark.gpu
+def test_wrappers_make_no_host_sync(cuda_device):
+    """raster_tiles and merged_tiles size the split walk from shapes alone:
+    no device value is read on the host."""
+    prep = ss.stress_pairs(0, 4, n_dense=_stress_dense(cuda_device),
+                           device=cuda_device)
+    b = prep.bins
+    bounds = ss.stress_bounds(prep)["dual"]
+    tile_map = cr.sparse_tile_map(b.counts, 8)
+    args = (ss.WIDTH // cr.TILE_W, ss.WIDTH, ss.HEIGHT, 0, 4)
+    cr.raster_tiles(prep.pair_data, b.starts, b.counts, *args)   # loads
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cr.raster_tiles(prep.pair_data, b.starts, b.counts, *args)
+        cr.raster_tiles(prep.pair_data, b.starts, b.counts, *args,
+                        bounds=bounds, tile_map=tile_map, dual=True)
+        cr.merged_tiles(prep.pair_data, b.starts, b.counts, prep.pair_data,
+                        b.starts, b.counts, *args[:4], n_attrs_b=2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_kernel_refuses_a_misaligned_table(cuda_device):
+    pd = torch.zeros((9, 20), device=cuda_device).view(-1)[1:161]
+    st = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        cr.raster_tiles(pd.view(8, 20), st, st, 2, 64, 8)
+
+
+@pytest.mark.gpu
+def test_launches_leave_the_workspace_clean(cuda_device):
+    """K1 and K2 share a stream's workspace and leave its counters at 0:
+    the same split launches repeated, in turns, keep equal to their plain
+    versions."""
+    n = _stress_dense(cuda_device)
+    pa = ss.stress_pairs(0, 4, n_dense=n, device=cuda_device)
+    pb = ss.stress_pairs(1, 4, n_dense=n, device=cuda_device)
+    a, b = pa.bins, pb.bins
+    args = (ss.WIDTH // cr.TILE_W, ss.WIDTH, ss.HEIGHT, 0)
+    k1 = lambda: cr.raster_tiles(pa.pair_data, a.starts, a.counts,  # noqa
+                                 *args, 4)
+    k2 = lambda: cr.merged_tiles(pa.pair_data, a.starts, a.counts,  # noqa
+                                 pb.pair_data, b.starts, b.counts, *args, 2)
+    want1 = cr._raster_tiles_plain(pa.pair_data, a.starts, a.counts, *args, 4)
+    want2 = cr._merged_tiles_plain(pa.pair_data, a.starts, a.counts,
+                                   pb.pair_data, b.starts, b.counts, *args, 2)
+    for fn, want in [(k1, want1), (k1, want1), (k2, want2), (k1, want1),
+                     (k2, want2), (k2, want2)]:
+        assert torch.equal(fn(), want)
