@@ -42,7 +42,8 @@ of timings; the last line is
 Numbers: kernel times are medians of CUDA-event-timed launches at the
 paths' launch shapes (the median of three rounds of 30), each beside the
 launch with only its densest tile left, the ratio of the two and
-``torch.profiler``'s device time; plain-version times one
+``torch.profiler``'s device time and the host time a call takes to
+reach its launch (calls issued back to back); plain-version times one
 CUDA-event-timed run;
 ``bound_ms`` is the larger of (bytes moved / 3.35 TB/s) and (operations /
 67 TFLOP/s FP32), counted from this run's inputs; the texture-space bakes
@@ -53,16 +54,10 @@ driven and read just after; each kernel row's ``launches`` is that of
 the path whose launch shape it was timed at (K2 at 2 blend attributes:
 the headline frames; K2 at 4 and K1's texture-space dual peel: the
 factored frame; K1's texture-space opaque pass: the frame without
-translucency). Each row also carries the time of the one-block-per-tile
-kernels before the split walk, on the same card type.
-
-Measurement options (the plain run takes none): ``--item-sweep
-64,128,64x6`` times the shapes again with the kernels built at other
-pairs per work item (x: resident blocks a SM asked of ptxas);
-``--ab-parent DIR`` times an earlier tree's K1/K2 wrappers and kernels in
-turns with these at every shape and over warm frames, DIR being that
-tree's ``renderengine_tpu_torch`` package unpacked under another name
-(``parent_port``) into a directory that ``.gitignore`` lists.
+translucency). Every number in the kernel line is measured in this run
+(``bound_ms`` is computed from it); the one-block-per-tile kernels' times
+before the split walk, on the same card type, are printed apart as
+history (``BEFORE_SPLIT_MS``).
 """
 
 from __future__ import annotations
@@ -87,17 +82,17 @@ SOURCE = "renderengine_tpu_torch/csrc/raster_tile.cu"
 REPLACES = "renderengine_tpu/raster/pallas_raster.py:122"
 K2_REPLACES = "renderengine_tpu/raster/pallas_raster.py:419"
 TSS_FRAMES = 3
-# the one-block-per-tile kernels' times, before the split walk, on an
-# NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md, from this script as it was
-# then): each kernel row's earlier time, and the warm frames
-BEFORE_MS = {"raster_tile": 0.7499839961528778,
-          "raster_tile_shadow": 0.48393601179122925,
-          "raster_tile_peel2": 0.11105599999427795,
-          "raster_tile_tss": 0.6909599900245667,
-          "raster_tile_tss_peel2": 0.09761599823832512,
-          "merged_tile": 0.6885760128498077,
-          "merged_tile_b4": 0.7109120190143585}
-BEFORE_FRAME_MS = {"per_pixel": [865.0, 905.0], "tss": [42.1, 39.0]}
+# history, not measured by this run: the one-block-per-tile kernels'
+# times before the split walk on an NVIDIA H100 80GB HBM3 at 700.00 W
+# (PERF.md, from this script as it was then), and the warm frames
+BEFORE_SPLIT_MS = {"raster_tile": 0.7499839961528778,
+                   "raster_tile_shadow": 0.48393601179122925,
+                   "raster_tile_peel2": 0.11105599999427795,
+                   "raster_tile_tss": 0.6909599900245667,
+                   "raster_tile_tss_peel2": 0.09761599823832512,
+                   "merged_tile": 0.6885760128498077,
+                   "merged_tile_b4": 0.7109120190143585}
+BEFORE_SPLIT_FRAME_MS = {"per_pixel": [865.0, 905.0], "tss": [42.1, 39.0]}
 
 
 def log(msg: str) -> None:
@@ -152,25 +147,6 @@ def device_ms(fn, reps: int) -> dict:
     return got / reps / 1e3 if got > 0 else None
 
 
-def frame_ab(render, cr, pcr, frames: int) -> dict:
-    """Warm frames of ``render`` through this tree's kernels and through
-    the parent's (``pcr``, its K1/K2 wrappers patched in), in turns:
-    parent, this, this, parent; host ms of each frame."""
-    out = {"parent": [], "this": []}
-    for who in ("parent", "this", "this", "parent"):
-        with mock.patch.object(cr, "raster_tiles", pcr.raster_tiles
-                               if who == "parent" else cr.raster_tiles), \
-                mock.patch.object(cr, "merged_tiles", pcr.merged_tiles
-                                  if who == "parent" else cr.merged_tiles):
-            for _ in range(frames):
-                t0 = time.perf_counter()
-                render()
-                torch.cuda.synchronize()
-                out[who].append((time.perf_counter() - t0) * 1e3)
-    log(f"  frames through the parent's kernels and these, in turns: {out}")
-    return out
-
-
 def solo_counts(*counts):
     """Copies of the counts with every tile but the densest (by the sum
     over the tables) emptied: that tile alone, in a launch of the same
@@ -184,36 +160,31 @@ def solo_counts(*counts):
     return out
 
 
-def time_shape(label, fn, solo_fn, reps=30, sweep=None, parent_fn=None):
+def host_ms(fn, reps: int) -> float:
+    """Host time per call of ``fn`` (the wrapper's checks, allocation and
+    launch), over ``reps`` calls issued back to back with no wait."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / reps
+
+
+def time_shape(label, fn, solo_fn, reps=30):
     """A launch shape's numbers: the CUDA-event median over ``reps``
     launches (the median of three such rounds, which differ by the host's
     noise), the densest tile alone (median over ``reps``), the ratio of
-    the two, the profiler's device time per launch of the kernel; with
-    ``sweep`` ({variant: library}) the median
-    and device time again under each build variant; with ``parent_fn``
-    (the same launch through an earlier tree's wrapper and kernel) both
-    timed in turns, parent, this, this, parent."""
+    the two, the profiler's device time per launch of the kernel and the
+    host time per call."""
     rounds = [cuda_ms(fn, reps) for _ in range(3)]
     ms = statistics.median(rounds)
     densest = cuda_ms(solo_fn, reps)
     r = {"ms": ms, "rounds_ms": rounds, "densest_tile_ms": densest,
-         "launch_over_densest": ms / densest, "device_ms": device_ms(fn, 10)}
-    if sweep:
-        from renderengine_tpu_torch.raster import cuda_raster as cr
-        default = cr._lib
-        r["item_sweep_ms"] = {}
-        try:
-            for c, lib in sweep.items():
-                cr._lib = lib
-                r["item_sweep_ms"][c] = {"ms": cuda_ms(fn, reps),
-                                         "device_ms": device_ms(fn, 10)}
-        finally:
-            cr._lib = default
-    if parent_fn is not None:
-        turns = [cuda_ms(f, reps) for f in (parent_fn, fn, fn, parent_fn)]
-        r["ab"] = {"parent_ms": [turns[0], turns[3]],
-                   "ms": [turns[1], turns[2]],
-                   "parent_device_ms": device_ms(parent_fn, 10)}
+         "launch_over_densest": ms / densest, "device_ms": device_ms(fn, 10),
+         "host_ms": host_ms(fn, reps)}
     log(f"  times [{label}]: {r}")
     return r
 
@@ -341,20 +312,6 @@ def k1_bound(pairs, n_slots, cpp, n_attrs, wins, demotes=0, peel=False,
 
 
 def main() -> None:
-    # --item-sweep 64,128,64x6: also time the launch shapes with the
-    # kernels built at those pairs per work item (x: resident blocks per
-    # SM asked of ptxas), a measurement knob
-    sweep_sizes = []
-    if "--item-sweep" in sys.argv:
-        arg = sys.argv[sys.argv.index("--item-sweep") + 1]
-        sweep_sizes = [tuple(int(x) for x in v.split("x")) + (None,)
-                       for v in arg.split(",")]
-        sweep_sizes = [(v[0], v[1]) for v in sweep_sizes]
-    # --ab-parent DIR: DIR holds an earlier tree's port package (renamed);
-    # its K1/K2 wrappers are timed beside these at every launch shape
-    ab_dir = None
-    if "--ab-parent" in sys.argv:
-        ab_dir = Path(sys.argv[sys.argv.index("--ab-parent") + 1]).resolve()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs a CUDA card", file=sys.stderr)
@@ -392,25 +349,6 @@ def main() -> None:
                 log(f"  ptxas: {ln.split(chr(39))[1][:100]}")
             if "registers" in ln or "spill" in ln:
                 log(f"  ptxas: {ln.strip()}")
-        pcr = None
-        if ab_dir is not None:
-            import importlib.util
-            spec = importlib.util.spec_from_file_location(
-                "parent_port", ab_dir / "__init__.py",
-                submodule_search_locations=[str(ab_dir)])
-            sys.modules["parent_port"] = importlib.util.module_from_spec(spec)
-            spec.loader.exec_module(sys.modules["parent_port"])
-            import parent_port.raster.cuda_raster as pcr
-            log(f"phase build: parent kernels {pcr.build().name}")
-        sweep = {}
-        if sweep_sizes:              # one nvcc per size, all at once
-            from concurrent.futures import ThreadPoolExecutor
-            with ThreadPoolExecutor(len(sweep_sizes)) as ex:
-                list(ex.map(lambda v: cr.build(*v), sweep_sizes))
-            sweep = {"x".join(str(x) for x in v if x): cr.load(*v)
-                     for v in sweep_sizes}
-            log(f"phase build: item sweep libraries {sorted(sweep)} in "
-                f"{time.time() - t0:.1f} s")
     except Exception as e:  # noqa: BLE001 — every phase is fatal
         fail(phase, e)
 
@@ -566,6 +504,24 @@ def main() -> None:
                         cr._merged_tiles_plain(*tabs)):
                 raise AssertionError("K2 split walk differs in a sign")
             n_checked += 1
+        # a replayed launch starts from the counters the last one left: K2
+        # captured once in a CUDA graph (on a side stream, whose first
+        # launch is ordered after the default stream's), replayed in turns
+        # with launches outside the graph
+        want = cr._merged_tiles_plain(*tabs)
+        side = torch.cuda.Stream()
+        with torch.cuda.stream(side):
+            cr.merged_tiles(*tabs)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side):
+                replayed = cr.merged_tiles(*tabs)
+        for _ in range(3):
+            graph.replay()
+            if not (same(replayed, want)
+                    and same(cr.merged_tiles(*tabs), want)):
+                raise AssertionError("a replayed K2 launch differs")
+            n_checked += 2
+        del graph, replayed
         log(f"phase split-stress: {n_checked} launches bit-exact (signs of "
             f"zero too), densest tile {count} pairs = "
             f"{-(-count // item)} work items of {item}")
@@ -629,8 +585,7 @@ def main() -> None:
         solo_args = (prep.pair_data, b.starts, solo, ntx, SPONZA_W, SPONZA_H)
         times = {"raster_tile": time_shape(
             "per-pixel opaque", lambda: cr.raster_tiles(*args, n_attrs=8),
-            lambda: cr.raster_tiles(*solo_args, n_attrs=8), sweep=sweep,
-            parent_fn=pcr and (lambda: pcr.raster_tiles(*args, n_attrs=8)))}
+            lambda: cr.raster_tiles(*solo_args, n_attrs=8))}
         k1_ms = times["raster_tile"]["ms"]
         densest_ms = times["raster_tile"]["densest_tile_ms"]
         bound_ms, bound_by, ops, bytes_moved = k1_bound(
@@ -717,9 +672,7 @@ def main() -> None:
         sh_solo_args = sh_args[:2] + (sh_solo,) + sh_args[3:]
         times["raster_tile_shadow"] = time_shape(
             "shadow", lambda: cr.raster_tiles(*sh_args, n_attrs=0),
-            lambda: cr.raster_tiles(*sh_solo_args, n_attrs=0), sweep=sweep,
-            parent_fn=pcr and (lambda: pcr.raster_tiles(*sh_args,
-                                                        n_attrs=0)))
+            lambda: cr.raster_tiles(*sh_solo_args, n_attrs=0))
         sh_ms = times["raster_tile_shadow"]["ms"]
         sh_bound_ms, sh_bound_by, sh_ops, sh_bytes = k1_bound(
             sh_pairs, sh_tiles, prep_sh.pair_data.shape[1], 0, st_s["wins"])
@@ -769,8 +722,7 @@ def main() -> None:
         pl_solo_args = pl_args[:2] + (pl_solo,) + pl_args[3:]
         times["raster_tile_peel2"] = time_shape(
             "per-pixel dual peel", lambda: cr.raster_tiles(*pl_args),
-            lambda: cr.raster_tiles(*pl_solo_args), sweep=sweep,
-            parent_fn=pcr and (lambda: pcr.raster_tiles(*pl_args)))
+            lambda: cr.raster_tiles(*pl_solo_args))
         pl_ms = times["raster_tile_peel2"]["ms"]
         pl_pairs = int(bt.counts.sum() if tile_map is None
                        else bt.counts[tile_map.long()].sum())
@@ -795,6 +747,8 @@ def main() -> None:
         opaque_v, shadow_v, peel_v = ((8, False, False), (0, False, False),
                                       (8, True, True))
         reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         frame_ms, per_frame, helpers = [], [], []
         for _ in range(N_FRAMES):
             before = dict(cr.variant_counts)
@@ -810,9 +764,13 @@ def main() -> None:
         total = cr.launch_counts["raster_tile"]
         launches = {v: cr.variant_counts[v]
                     for v in (opaque_v, shadow_v, peel_v)}
+        mem = {"workspace_bytes": cr.workspace_bytes(),
+               "peak_bytes": torch.cuda.max_memory_allocated()}
         log(f"phase main-path: {total} launches {per_frame}, workspace "
-            f"zeroings {helpers}, frame ms {frame_ms} (before the split walk, warm: "
-            f"{BEFORE_FRAME_MS['per_pixel']})")
+            f"zeroings {helpers}, frame ms {frame_ms} (one block per tile, warm: "
+            f"{BEFORE_SPLIT_FRAME_MS['per_pixel']}); split-walk workspace "
+            f"{mem['workspace_bytes']} B, peak device memory of the frames "
+            f"{mem['peak_bytes']} B")
         for i, pf in enumerate(per_frame):
             want = {opaque_v: 1, peel_v: 1, shadow_v: n_maps if i == 0 else 0}
             if pf != want:
@@ -889,9 +847,6 @@ def main() -> None:
             f"max {mx}/255")
         if not goldens.meets_bar(frac, mx):
             raise AssertionError("K1 frame misses the bar against plain K1")
-        frames_ab = {}
-        if pcr is not None:
-            frames_ab["per_pixel"] = frame_ab(renderer.render, cr, pcr, 2)
     except Exception as e:  # noqa: BLE001
         fail(phase, e)
 
@@ -951,8 +906,7 @@ def main() -> None:
         ta_solo_args = ta_args[:2] + (ta_solo,) + ta_args[3:]
         times["raster_tile_tss"] = time_shape(
             "TSS opaque", lambda: cr.raster_tiles(*ta_args),
-            lambda: cr.raster_tiles(*ta_solo_args), sweep=sweep,
-            parent_fn=pcr and (lambda: pcr.raster_tiles(*ta_args)))
+            lambda: cr.raster_tiles(*ta_solo_args))
         ta_ms = times["raster_tile_tss"]["ms"]
         ta_bound, ta_by, ta_ops, ta_bytes = k1_bound(
             pairs_a, n_tiles, prep_a.pair_data.shape[1], 4, st_a["wins"])
@@ -989,8 +943,7 @@ def main() -> None:
             name = "merged_tile" if nab == 2 else "merged_tile_b4"
             times[name] = time_shape(
                 f"K2 n_attrs_b={nab}", lambda: cr.merged_tiles(*k2_args),
-                lambda: cr.merged_tiles(*k2_solo), sweep=sweep,
-                parent_fn=pcr and (lambda: pcr.merged_tiles(*k2_args)))
+                lambda: cr.merged_tiles(*k2_solo))
             k2_ms = times[name]["ms"]
             bound = k2_bound(pairs_a, pairs_b, n_tiles, nab, st_k2["wins"],
                              st_k2["wins_b"], st_k2["demotes"])
@@ -1020,8 +973,7 @@ def main() -> None:
         tp_solo_args = tp_args[:2] + (tp_solo,) + tp_args[3:]
         times["raster_tile_tss_peel2"] = time_shape(
             "TSS dual peel", lambda: cr.raster_tiles(*tp_args),
-            lambda: cr.raster_tiles(*tp_solo_args), sweep=sweep,
-            parent_fn=pcr and (lambda: pcr.raster_tiles(*tp_args)))
+            lambda: cr.raster_tiles(*tp_solo_args))
         tp_ms = times["raster_tile_tss_peel2"]["ms"]
         tp_bound, tp_by, tp_ops, tp_bytes = k1_bound(
             pairs_b, n_tiles, 32, 4, st_tp["wins"], st_tp["demotes"],
@@ -1061,6 +1013,8 @@ def main() -> None:
                 return r.render()[0]
 
         reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         tss_ms, tss_per_frame, tss_stats, tss_helpers = [], [], [], []
         for _ in range(TSS_FRAMES):
             before = dict(cr.variant_counts)
@@ -1076,14 +1030,18 @@ def main() -> None:
                                 for k in cr.helper_counts})
             tss_stats.append({k: v.tolist() for k, v in tst.items()})
         path_launches = {"headline": path_counts()}
+        tss_mem = {"workspace_bytes": cr.workspace_bytes(),
+                   "peak_bytes": torch.cuda.max_memory_allocated()}
         vis_ms = cuda_ms(lambda: (lightchart.bake_visibility(
             tsd, {"pos": tsd["chart_pos"], "normal": tsd["chart_normal"],
                   "mat_id": tsd["chart_mat"][15]}, tss_r._shadow_maps,
             tparams["shadow_viewproj"], tss_r._shadow_lights),
             lightchart.static_tables(tsd, tcfg, tss_r._baked_exposure)), 2)
-        log(f"phase tss-path: frame ms {tss_ms} (before the split walk, warm: "
-            f"{BEFORE_FRAME_MS['tss']}), launches {tss_per_frame}, workspace "
-            f"zeroings {tss_helpers}; "
+        log(f"phase tss-path: frame ms {tss_ms} (one block per tile, warm: "
+            f"{BEFORE_SPLIT_FRAME_MS['tss']}), launches {tss_per_frame}, workspace "
+            f"zeroings {tss_helpers}; split-walk workspace "
+            f"{tss_mem['workspace_bytes']} B, peak device memory of the "
+            f"frames {tss_mem['peak_bytes']} B; "
             f"specular chart pass {spec_ms:.3f} ms, visibility bake + static"
             f" tables {vis_ms:.2f} ms on the card; counters {tss_stats}; "
             f"shadow overflow {tss_r.shadow_overflow}")
@@ -1132,8 +1090,6 @@ def main() -> None:
         log(f"phase tss-path: through the plain versions identical: {same}")
         if not same:
             raise AssertionError("the kernel frame differs from the plain one")
-        if pcr is not None:
-            frames_ab["tss"] = frame_ab(tss_r.render, cr, pcr, 3)
         del tss_r, tsd, unm
         torch.cuda.empty_cache()
         modes = {}
@@ -1190,12 +1146,10 @@ def main() -> None:
                 "replaces": K2_REPLACES if k2 else REPLACES,
                 "launches": launches, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-                "library_ms": None, "before_ms": BEFORE_MS[name],
+                "library_ms": None,
                 "densest_tile_ms": t["densest_tile_ms"],
                 "launch_over_densest": t["launch_over_densest"],
-                "device_ms": t["device_ms"],
-                **({"item_sweep_ms": t["item_sweep_ms"]}
-                   if "item_sweep_ms" in t else {})}
+                "device_ms": t["device_ms"], "host_ms": t["host_ms"]}
 
     kernels = [
         row("raster_tile", launches[opaque_v], max_err["opaque"], k1_ms,
@@ -1217,6 +1171,11 @@ def main() -> None:
             k2[4]["ms"], k2[4]["plain_ms"], k2[4]["bound_ms"],
             k2[4]["bound_by"], k2=True),
     ]
+    for k in kernels:
+        log(f"{k['name']}: {k['ms']!r} ms in this run, device "
+            f"{k['device_ms']!r} ms, host {k['host_ms']!r} ms a call; one "
+            f"block per tile, before the split walk (history, PERF.md): "
+            f"{BEFORE_SPLIT_MS[k['name']]!r} ms")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"timings": {
@@ -1242,14 +1201,15 @@ def main() -> None:
         "launches_per_frame": [{str(k): v for k, v in pf.items()}
                                for pf in per_frame],
         "workspace_zeroings_per_frame": helpers,
-        "before_frame_ms": BEFORE_FRAME_MS, "kernel_times": times,
-        "frames_ab": frames_ab,
+        "memory": mem, "history_before_split_ms": BEFORE_SPLIT_MS,
+        "history_before_split_frame_ms": BEFORE_SPLIT_FRAME_MS,
+        "kernel_times": times,
         "sky_share": sky_share,
         "penumbra_tile_budget": rcfg.penumbra_tile_budget,
         "blend_tile_budget": rcfg.blend_tile_budget, "scene_tris": n_tris, "textures": n_tex,
         "tss": {"frame_ms": tss_ms, "launches_per_frame": tss_per_frame,
                 "workspace_zeroings_per_frame": tss_helpers,
-                "counters": tss_stats, "init_s": tss_init_s,
+                "memory": tss_mem, "counters": tss_stats, "init_s": tss_init_s,
                 "upload_bake_ms": bake_ms, "visibility_bake_ms": vis_ms,
                 "spec_pass_ms": spec_ms, "tris": tss_tris,
                 "atlas": [c_ah, c_aw], "live_texels": n_texels,

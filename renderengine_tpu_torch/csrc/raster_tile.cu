@@ -77,10 +77,16 @@
 // through a shared cursor), and every idle block retrying them on the
 // same counters serializes the chunks. Blocks are dispatched in order in
 // practice, so the helpers start with the last wave and the split tiles'
-// chunks run beside it. The workspace is sized from the pair table's
-// rows, which bound the chunks; it is kept per stream, starts zeroed,
-// and each launch leaves its counters at 0 for the next, so no memset
-// runs between launches.
+// chunks run beside it. The launch resets its own counters: the merging
+// item zeroes its tile's arrivals, and every helper counts itself out
+// after its last claim, the last one zeroing the queue and registration
+// counters (by then every slot block has registered, its last use of
+// them). So the counters start at 0 for every launch, a replayed one (a
+// CUDA graph) too, and no memset runs between launches. The scratch is sized
+// from the pair table's rows, which bound the chunks, and the keys by
+// the layers the launch carries. One workspace serves a device, so its
+// launches must not overlap: the wrapper orders a launch on a new stream
+// after the previous stream's work.
 //
 // Asynchronous staging. An item's rows (at most kItem, 80/128/176 B each,
 // 16-B aligned) land in shared memory by Hopper's 1D bulk copy
@@ -125,26 +131,19 @@
 #include <algorithm>
 #include <cstdint>
 
-#ifndef ITEM_PAIRS
-#define ITEM_PAIRS 64
-#endif
-#ifndef MIN_BLOCKS
-#define MIN_BLOCKS 6
-#endif
-
 namespace {
 
 using u64 = unsigned long long;
 constexpr int kTileH = 8;
 constexpr int kTileW = 32;
 constexpr int kThreads = kTileH * kTileW;  // one thread per pixel
-constexpr int kItem = ITEM_PAIRS;          // pairs per work item
+constexpr int kItem = 64;                  // pairs per work item
 constexpr int kStage = 16;                 // pairs per bulk copy
 // K2's item may cut one copy in two at the A/B boundary
 constexpr int kMaxStages = kItem / kStage + 1;
 // resident blocks a SM asked of ptxas for K2 and K1 without DUAL (K1's
 // dual walk carries two layers and runs best unconstrained)
-constexpr int kMinBlocks = MIN_BLOCKS;
+constexpr int kMinBlocks = 6;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr u64 kEmptyKey = (u64(0x3F800000u) << 32) | 0xFFFFFFFFu;
 static_assert(kItem % kStage == 0, "an item is whole copies");
@@ -425,20 +424,27 @@ __device__ __forceinline__ void pixel(int tile, int ntx, int width,
 
 constexpr int kCtr = 8;  // counters at the head of the int32 workspace
 
-// The workspace a stream's launches share, one at a time; it starts
-// zeroed and every launch leaves its counters and arrivals at 0 for the
-// next: the arrivals by the merging item, the counters by two sets used
-// in turn, block 0 zeroing the set the launch does not use.
+// The int32 workspace a device's launches share, one at a time. It
+// starts zeroed and every launch leaves it so: the arrivals by the
+// merging item, the counters by the launch's last helper to finish. Only
+// thread 0 of a block touches the counters.
 struct Work {
   int* ctr;       // [1] chunks queued, [2] slot blocks registered,
-                  // [3] key rows taken, [4] chunks claimed
-  int* spare;     // the other counter set
+                  // [3] key rows taken, [4] chunks claimed, [5] helpers
+                  // done
   int* arrivals;  // [slots] finished items of each split tile
   int4* queue;    // chunks k >= 1 of split tiles: (slot, k, key row, 0)
 };
 
-__device__ __forceinline__ void zero_spare(const Work& w) {
-  if (blockIdx.x == 0 && threadIdx.x < kCtr) w.spare[threadIdx.x] = 0;
+// A helper past its last claim counts itself out; the launch's last one
+// zeroes the counters for the next launch (the other helpers are past
+// their last use of them, and every slot block registered, its last use,
+// before any helper claimed).
+__device__ __forceinline__ void helper_done(const Work& w, int n_helpers) {
+  if (threadIdx.x != 0) return;
+  __threadfence();
+  if (atomicAdd(w.ctr + 5, 1) != n_helpers - 1) return;
+  for (int i = 0; i < kCtr; ++i) w.ctr[i] = 0;
 }
 
 // A slot block counts itself registered as it starts; a split tile's
@@ -560,7 +566,6 @@ raster_tile_kernel(const K1Args a) {
   __shared__ __align__(8) u64 bars[kMaxStages];
 
   const int slot = blockIdx.x;
-  zero_spare(a.w);
   bar_init(bars, kMaxStages);
   if (slot >= a.n_slots) {  // a helper: walk queued chunks
     wait_registered(a.w, a.n_slots);
@@ -569,6 +574,7 @@ raster_tile_kernel(const K1Args a) {
       if (!first) bar_reinit(bars, kMaxStages);
       k1_chunk<N_ATTRS, PEEL, DUAL>(a, c.x, c.y, c.z, rows, bars);
     }
+    helper_done(a.w, gridDim.x - a.n_slots);
     return;
   }
   const int tile = a.tile_map != nullptr ? a.tile_map[slot] : slot;
@@ -696,7 +702,6 @@ merged_tile_kernel(const K2Args a) {
   __shared__ __align__(8) u64 bars[kMaxStages];
 
   const int tile = blockIdx.x;
-  zero_spare(a.w);
   bar_init(bars, kMaxStages);
   if (tile >= a.n_tiles) {  // a helper: walk queued chunks
     wait_registered(a.w, a.n_tiles);
@@ -705,6 +710,7 @@ merged_tile_kernel(const K2Args a) {
       if (!first) bar_reinit(bars, kMaxStages);
       k2_chunk<N_ATTRS_B>(a, c.x, c.y, c.z, rows, bars);
     }
+    helper_done(a.w, gridDim.x - a.n_tiles);
     return;
   }
   const int count = a.counts_a[tile] + a.counts_b[tile];
@@ -731,31 +737,25 @@ merged_tile_kernel(const K2Args a) {
 
 // --- launches ---------------------------------------------------------------
 
-// The workspace for launches of up to cap_slots slots over tables of up
-// to cap_rows pair rows in all: two counter sets, the arrivals, the queue
-// (fewer than rows / kItem chunks beyond the first of each split tile),
-// then the u64 keys, 3 layers (split chunks number below 2 * rows /
-// kItem: ceil(c / kItem) < 2 c / kItem for c > kItem).
-int queue_len(long long rows) { return (int)(rows / kItem + 1); }
+// The int32 workspace for launches of up to cap_slots slots over tables
+// of up to rows pair rows in all: the counters, the arrivals, the queue
+// (fewer than rows / kItem chunks beyond the first of each split tile).
+long long queue_len(long long rows) { return rows / kItem + 1; }
 
-size_t int_words(int cap_slots, long long cap_rows) {
-  return 2 * kCtr + (cap_slots + 3) / 4 * 4 + 4 * (size_t)queue_len(cap_rows);
+long long int_words(int cap_slots, long long rows) {
+  return kCtr + (cap_slots + 3) / 4 * 4 + 4 * queue_len(rows);
 }
 
-size_t workspace_bytes(int cap_slots, long long cap_rows) {
-  return int_words(cap_slots, cap_rows) * sizeof(int) +
-         (size_t)(2 * cap_rows / kItem + 1) * 3 * kThreads * sizeof(u64);
-}
+// Key rows of a launch over rows pair rows: its split chunks number below
+// 2 * rows / kItem (ceil(c / kItem) < 2 c / kItem for c > kItem).
+long long key_rows(long long rows) { return 2 * rows / kItem + 1; }
 
-// Carve the workspace; `parity` picks the counter set of this launch.
-void carve(void* ws, int cap_slots, long long cap_rows, int parity,
-           u64** keys, Work* w) {
-  int* p = static_cast<int*>(ws);
-  w->ctr = p + (parity & 1) * kCtr;
-  w->spare = p + (1 - (parity & 1)) * kCtr;
-  w->arrivals = p + 2 * kCtr;
-  w->queue = reinterpret_cast<int4*>(w->arrivals + (cap_slots + 3) / 4 * 4);
-  *keys = reinterpret_cast<u64*>(p + int_words(cap_slots, cap_rows));
+Work carve(int* ws, int cap_slots) {
+  Work w;
+  w.ctr = ws;
+  w.arrivals = ws + kCtr;
+  w.queue = reinterpret_cast<int4*>(w.arrivals + (cap_slots + 3) / 4 * 4);
+  return w;
 }
 
 // The grid of a kernel: the slots, then helper blocks, as many as the
@@ -769,8 +769,8 @@ int grid_of(int occ, int n_slots, long long rows) {
   int& n_sm = sms[dev & 63];
   if (n_sm == 0)
     cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  const int helpers = std::max(1, n_sm * (occ - 1));
-  return n_slots + std::min(queue_len(rows), helpers);
+  const long long helpers = std::max(1, n_sm * (occ - 1));
+  return n_slots + (int)std::min(queue_len(rows), helpers);
 }
 
 template <class Kernel>
@@ -811,25 +811,30 @@ void launch_k1_mode(bool peel, bool dual, const K1Args& a, long long rows,
 // Pairs per work item.
 extern "C" int raster_item_pairs() { return kItem; }
 
-// Bytes of a workspace for K1 and K2 launches of up to cap_slots slots
-// over tables of up to cap_rows pair rows in all; it starts zeroed.
-extern "C" long long raster_workspace_bytes(int cap_slots,
-                                            long long cap_rows) {
-  return (long long)workspace_bytes(cap_slots, cap_rows);
+// int32 words of the workspace for launches of up to cap_slots slots over
+// tables of up to rows pair rows in all; it starts zeroed.
+extern "C" long long raster_int_words(int cap_slots, long long rows) {
+  return int_words(cap_slots, rows);
+}
+
+// 64-bit words of the key scratch for a launch over rows pair rows that
+// carries `layers` layers a pixel (K1: 1, or 2 with dual; K2: 3); needs
+// no zeroing.
+extern "C" long long raster_key_words(long long rows, int layers) {
+  return key_rows(rows) * layers * kThreads;
 }
 
 // K1 on `stream`. tile_map: null for the dense grid (slot s = tile s),
 // else n_slots tile ids. bounds: null for no peel test; dual needs it.
-// workspace: raster_workspace_bytes(cap_slots, cap_rows) bytes, 16-byte
-// aligned, zeroed before its first launch and used by one stream;
-// `parity` alternates between its launches; n_slots <= cap_slots, rows
-// (the table's) <= cap_rows. Returns the CUDA error code (0 =
-// launched), -1 for an unsupported mode.
+// ints: raster_int_words(cap_slots, rows) words, zeroed before its first
+// launch, left zeroed by each; keys: raster_key_words(rows, 1 or 2)
+// words; n_slots <= cap_slots, rows = the table's. Launches sharing
+// ints must not overlap. Returns the CUDA error code (0 = launched), -1
+// for an unsupported mode.
 extern "C" int raster_tile_launch(const float* pairs, const int* starts,
                                   const int* counts, const int* tile_map,
-                                  const float* bounds, float* out,
-                                  void* workspace, int cap_slots,
-                                  int cap_rows, int parity, int n_slots,
+                                  const float* bounds, float* out, int* ints,
+                                  u64* keys, int cap_slots, int n_slots,
                                   int rows, int ntx, int width,
                                   int full_height, int y0, int n_attrs,
                                   int dual, void* stream) {
@@ -837,9 +842,9 @@ extern "C" int raster_tile_launch(const float* pairs, const int* starts,
   if (dual && bounds == nullptr) return -1;
   if (n_attrs != 0 && n_attrs != 4 && n_attrs != 8) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  K1Args a{pairs, starts, counts, tile_map, bounds, out, nullptr, {},
-           n_slots, ntx, width, full_height, y0};
-  carve(workspace, cap_slots, cap_rows, parity, &a.keys, &a.w);
+  const K1Args a{pairs, starts, counts, tile_map, bounds, out, keys,
+                 carve(ints, cap_slots), n_slots, ntx, width, full_height,
+                 y0};
   const bool peel = bounds != nullptr;
   if (n_attrs == 0) {
     launch_k1_mode<0>(peel, dual != 0, a, rows, s);
@@ -851,23 +856,23 @@ extern "C" int raster_tile_launch(const float* pairs, const int* starts,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K2 over the dense tile grid of both tables on `stream`; workspace and
-// parity as for K1, rows = both tables' rows. Returns the CUDA error
-// code (0 = launched), -1 for an unsupported n_attrs_b.
+// K2 over the dense tile grid of both tables on `stream`; ints and keys
+// as for K1 (keys: raster_key_words(rows, 3)), rows = both tables' rows.
+// Returns the CUDA error code (0 = launched), -1 for an unsupported
+// n_attrs_b.
 extern "C" int merged_tile_launch(const float* pairs_a, const int* starts_a,
                                   const int* counts_a, const float* pairs_b,
                                   const int* starts_b, const int* counts_b,
-                                  float* out, void* workspace, int cap_slots,
-                                  int cap_rows, int parity, int n_tiles,
-                                  int rows, int ntx, int width,
-                                  int full_height, int y0, int n_attrs_b,
-                                  void* stream) {
+                                  float* out, int* ints, u64* keys,
+                                  int cap_slots, int n_tiles, int rows,
+                                  int ntx, int width, int full_height,
+                                  int y0, int n_attrs_b, void* stream) {
   if (n_tiles <= 0) return 0;
   if (n_attrs_b != 2 && n_attrs_b != 4) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  K2Args a{pairs_a, starts_a, counts_a, pairs_b, starts_b, counts_b, out,
-           nullptr, {}, n_tiles, ntx, width, full_height, y0};
-  carve(workspace, cap_slots, cap_rows, parity, &a.keys, &a.w);
+  const K2Args a{pairs_a, starts_a, counts_a, pairs_b, starts_b, counts_b,
+                 out, keys, carve(ints, cap_slots), n_tiles, ntx, width,
+                 full_height, y0};
   if (n_attrs_b == 2) {
     launch_k2<2>(a, rows, s);
   } else {

@@ -70,7 +70,7 @@ K2_ATTRS_B = (2, 4)       # attribute prefixes K2's blend layers interpolate
 # ("merged", n_attrs_b) for K2
 launch_counts = {"raster_tile": 0, "merged_tile": 0}
 # other device work of the wrappers, counted apart: the zeroing of a new
-# or grown workspace (a memset, once per stream and size)
+# or grown workspace (a memset, once per device and size)
 helper_counts = {"workspace_zero": 0}
 variant_counts: collections.Counter = collections.Counter()
 
@@ -152,31 +152,19 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the kernels build on a CUDA host")
 
 
-def build(item_pairs: int | None = None,
-          min_blocks: int | None = None) -> Path:
+def build() -> Path:
     """Compile ``csrc/raster_tile.cu`` into ``build/`` (once per source
-    content and variant) and return the shared library's path. The ptxas
-    report (registers, shared memory, spills) is kept beside it as
-    ``.log``. ``item_pairs`` (pairs per work item) and ``min_blocks``
-    (resident blocks per SM asked of ptxas) override the source's
-    defaults: measurement knobs, the port uses the defaults."""
+    content) and return the shared library's path. The ptxas report
+    (registers, shared memory, spills) is kept beside it as ``.log``."""
     src = SOURCE.read_bytes()
-    tag = hashlib.sha1(src).hexdigest()[:12]
-    defines = []
-    if item_pairs is not None:
-        tag += f"_c{item_pairs}"
-        defines.append(f"-DITEM_PAIRS={item_pairs}")
-    if min_blocks is not None:
-        tag += f"_m{min_blocks}"
-        defines.append(f"-DMIN_BLOCKS={min_blocks}")
-    so = BUILD_DIR / f"libraster_tile_{tag}.so"
+    so = BUILD_DIR / f"libraster_tile_{hashlib.sha1(src).hexdigest()[:12]}.so"
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v", *defines,
+           "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
            "-shared", "-Xcompiler", "-fPIC", "-o", tmp, str(SOURCE)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
@@ -187,52 +175,77 @@ def build(item_pairs: int | None = None,
     return so
 
 
-def load(item_pairs: int | None = None, min_blocks: int | None = None):
+def _library():
     """Build (if needed) and load the kernels' library, its entry points
     typed for ctypes."""
-    lib = ctypes.CDLL(str(build(item_pairs, min_blocks)))
-    lib.raster_item_pairs.restype = ctypes.c_int
-    lib.raster_workspace_bytes.restype = ctypes.c_longlong
-    lib.raster_workspace_bytes.argtypes = [ctypes.c_int, ctypes.c_longlong]
-    lib.raster_tile_launch.restype = ctypes.c_int
-    lib.raster_tile_launch.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
-    lib.merged_tile_launch.restype = ctypes.c_int
-    lib.merged_tile_launch.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
-    lib.item_pairs = lib.raster_item_pairs()
-    return lib
-
-
-def _library():
     global _lib
     if _lib is None:
-        _lib = load()
+        lib = ctypes.CDLL(str(build()))
+        lib.raster_item_pairs.restype = ctypes.c_int
+        lib.raster_int_words.restype = ctypes.c_longlong
+        lib.raster_int_words.argtypes = [ctypes.c_int, ctypes.c_longlong]
+        lib.raster_key_words.restype = ctypes.c_longlong
+        lib.raster_key_words.argtypes = [ctypes.c_longlong, ctypes.c_int]
+        lib.raster_tile_launch.restype = ctypes.c_int
+        lib.raster_tile_launch.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+        lib.merged_tile_launch.restype = ctypes.c_int
+        lib.merged_tile_launch.argtypes = (
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        lib.item_pairs = lib.raster_item_pairs()
+        _lib = lib
     return _lib
 
 
-# per (library, device, stream): [workspace, slots, rows, parity]
+class _Workspace:
+    """The split walk's scratch on one device: the int32 counters, tile
+    arrivals and chunk queue (zeroed once, left zeroed by every launch)
+    and the 64-bit keys (written before they are read), with the sizes
+    they were made for and the stream of the last launch."""
+    __slots__ = ("ints", "keys", "slots", "rows", "stream")
+
+    def __init__(self, stream):
+        self.ints = self.keys = None
+        self.slots = self.rows = 0
+        self.stream = stream
+
+
+# per device index: its workspace
 _workspaces: dict = {}
 
 
-def _workspace(lib, dev, stream: int, n_slots: int, rows: int) -> list:
-    """The split walk's scratch for a launch on ``stream``, sized from
-    shapes alone (no device read): counters, a queue of chunks and 64-bit
-    keys (``raster_workspace_bytes`` in the source). One per stream, kept
-    across launches: it starts zeroed and each launch leaves it so, using
-    one of two counter sets by ``parity``. A launch larger than it gets a
-    new zeroed one (counted in ``helper_counts``)."""
-    key = (id(lib), dev.index, stream)
-    w = _workspaces.get(key)
-    if w is None or w[1] < n_slots or w[2] < rows:
-        slots = max(n_slots, w[1] if w else 0)
-        cap = max(rows, w[2] if w else 0)
-        nbytes = lib.raster_workspace_bytes(slots, cap)
-        w = [torch.zeros(-(-nbytes // 16) * 2, dtype=torch.int64,
-                         device=dev), slots, cap, 0]
-        _workspaces[key] = w
+def _workspace(lib, dev, n_slots: int, rows: int, layers: int):
+    """The workspace for a launch of ``n_slots`` slots over ``rows`` pair
+    rows carrying ``layers`` layers a pixel, sized from shapes alone (no
+    device read). One per device, since a launch's counters must not be
+    shared with an overlapping one: a launch on another stream than the
+    last is ordered after that stream's work. It grows when a launch
+    needs more; a new int32 part is zeroed (counted in
+    ``helper_counts``)."""
+    stream = torch.cuda.current_stream(dev)
+    w = _workspaces.get(dev.index)
+    if w is None:
+        w = _workspaces[dev.index] = _Workspace(stream)
+    elif w.stream != stream:
+        stream.wait_stream(w.stream)
+        w.ints.record_stream(stream)
+        w.keys.record_stream(stream)
+        w.stream = stream
+    if w.ints is None or n_slots > w.slots or rows > w.rows:
+        w.slots, w.rows = max(n_slots, w.slots), max(rows, w.rows)
+        w.ints = torch.zeros(lib.raster_int_words(w.slots, w.rows),
+                             dtype=torch.int32, device=dev)
         helper_counts["workspace_zero"] += 1
+    n_keys = lib.raster_key_words(rows, layers)
+    if w.keys is None or w.keys.numel() < n_keys:
+        w.keys = torch.empty(n_keys, dtype=torch.int64, device=dev)
     return w
+
+
+def workspace_bytes() -> int:
+    """Device bytes held by the split walk's workspaces."""
+    return sum(t.numel() * t.element_size() for w in _workspaces.values()
+               for t in (w.ints, w.keys) if t is not None)
 
 
 def _check_aligned(*tables) -> None:
@@ -329,21 +342,18 @@ def raster_tiles(pair_data: torch.Tensor, starts: torch.Tensor,
     n_sel = n_tiles if tile_map is None else tile_map.shape[0]
     out = torch.empty((n_sel, _n_planes(n_attrs, dual), TILE_H * TILE_W),
                       dtype=torch.float32, device=dev)
-    rows = pair_data.shape[0]
     lib = _library()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        ws = _workspace(lib, dev, stream, n_sel, rows)
+        ws = _workspace(lib, dev, n_sel, pair_data.shape[0], 2 if dual else 1)
         rc = lib.raster_tile_launch(
             pair_data.data_ptr(), starts.data_ptr(), counts.data_ptr(),
             None if tile_map is None else tile_map.data_ptr(),
             None if bounds is None else bounds.data_ptr(),
-            out.data_ptr(), ws[0].data_ptr(), ws[1], ws[2], ws[3], n_sel,
-            rows, ntx, width, full_height, y0, n_attrs, int(dual), stream)
+            out.data_ptr(), ws.ints.data_ptr(), ws.keys.data_ptr(),
+            ws.slots, n_sel, pair_data.shape[0], ntx, width, full_height,
+            y0, n_attrs, int(dual), ws.stream.cuda_stream)
     if rc != 0:
         raise RuntimeError(f"raster_tile launch failed: CUDA error {rc}")
-    if n_sel:
-        ws[3] ^= 1            # the launch zeroed the other counter set
     launch_counts["raster_tile"] += 1
     variant_counts[(n_attrs, bounds is not None, dual)] += 1
     return out
@@ -649,17 +659,15 @@ def merged_tiles(pairs_a: torch.Tensor, starts_a: torch.Tensor,
     rows = pairs_a.shape[0] + pairs_b.shape[0]
     lib = _library()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        ws = _workspace(lib, dev, stream, n_tiles, rows)
+        ws = _workspace(lib, dev, n_tiles, rows, 3)
         rc = lib.merged_tile_launch(
             pairs_a.data_ptr(), starts_a.data_ptr(), counts_a.data_ptr(),
             pairs_b.data_ptr(), starts_b.data_ptr(), counts_b.data_ptr(),
-            out.data_ptr(), ws[0].data_ptr(), ws[1], ws[2], ws[3], n_tiles,
-            rows, ntx, width, full_height, y0, n_attrs_b, stream)
+            out.data_ptr(), ws.ints.data_ptr(), ws.keys.data_ptr(),
+            ws.slots, n_tiles, rows, ntx, width, full_height, y0, n_attrs_b,
+            ws.stream.cuda_stream)
     if rc != 0:
         raise RuntimeError(f"merged_tile launch failed: CUDA error {rc}")
-    if n_tiles:
-        ws[3] ^= 1            # the launch zeroed the other counter set
     launch_counts["merged_tile"] += 1
     variant_counts[("merged", n_attrs_b)] += 1
     return out

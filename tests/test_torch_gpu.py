@@ -314,9 +314,9 @@ def test_kernel_refuses_a_misaligned_table(cuda_device):
 
 @pytest.mark.gpu
 def test_launches_leave_the_workspace_clean(cuda_device):
-    """K1 and K2 share a stream's workspace and leave its counters at 0:
-    the same split launches repeated, in turns, keep equal to their plain
-    versions."""
+    """K1 and K2 share the device's workspace and leave its counters at
+    0: the same split launches repeated, in turns, keep equal to their
+    plain versions."""
     n = _stress_dense(cuda_device)
     pa = ss.stress_pairs(0, 4, n_dense=n, device=cuda_device)
     pb = ss.stress_pairs(1, 4, n_dense=n, device=cuda_device)
@@ -332,3 +332,48 @@ def test_launches_leave_the_workspace_clean(cuda_device):
     for fn, want in [(k1, want1), (k1, want1), (k2, want2), (k1, want1),
                      (k2, want2), (k2, want2)]:
         assert torch.equal(fn(), want)
+
+
+def _stress_k2(cuda_device):
+    """The stress scene's K2 launch and its plain result."""
+    n = _stress_dense(cuda_device)
+    pa = ss.stress_pairs(0, 4, n_dense=n, device=cuda_device)
+    pb = ss.stress_pairs(1, 4, n_dense=n, device=cuda_device)
+    tabs = (pa.pair_data, pa.bins.starts, pa.bins.counts, pb.pair_data,
+            pb.bins.starts, pb.bins.counts, ss.WIDTH // cr.TILE_W, ss.WIDTH,
+            ss.HEIGHT, 0, 2)
+    return (lambda: cr.merged_tiles(*tabs)), cr._merged_tiles_plain(*tabs)
+
+
+@pytest.mark.gpu
+def test_replayed_launches_start_clean(cuda_device):
+    """A launch captured in a CUDA graph replays from the counters the
+    last launch left, so replays and launches outside the graph, in
+    turns, keep equal to the plain version."""
+    k2, want = _stress_k2(cuda_device)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        k2()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            got = k2()
+    for _ in range(3):
+        graph.replay()
+        assert torch.equal(got, want)
+        assert torch.equal(k2(), want)
+
+
+@pytest.mark.gpu
+def test_launches_on_two_streams(cuda_device):
+    """Launches that alternate between two streams share the device's
+    workspace: each is ordered after the other stream's work."""
+    k2, want = _stress_k2(cuda_device)
+    side = torch.cuda.Stream()
+    outs = []
+    for i in range(4):
+        with torch.cuda.stream(side if i % 2 else
+                               torch.cuda.current_stream()):
+            outs.append(k2())
+    torch.cuda.synchronize()
+    for out in outs:
+        assert torch.equal(out, want)
