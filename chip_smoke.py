@@ -31,7 +31,26 @@ Sponza (260k triangles, 200 textures of 512^2), checking their output:
   layers: K2 and a K1 dual peel), fully pre-shaded shading and shading
   without translucency (where K1 at 4 attributes rasters the opaque pass).
   Each of these frames is rendered again through the plain versions and
-  must come out identical.
+  must come out identical;
+- the app path (phase app-path): ``engine.init()``, then
+  ``apps.main_sample.main()`` in process on the Sponza at 1920x1080 with
+  the app's defaults (2048^2 shadow maps): 5 per-pixel frames, 5
+  ``--textureSpace`` frames (one K2 launch a frame) and 8 ``--orbit
+  --hud`` frames, through ``RenderLoop`` (two frames in flight) and the
+  non-blocking overflow poll; then ``apps.live_viewer.main()`` for 3
+  frames. Every PNG decodes to 1080x1920 RGBA8; the check waits for the
+  first frame before the second renders (the app does not), so from the
+  second frame on every counter is 0 and each frame equals ``render()``
+  with the config it rendered with, byte for byte (frames 3-5 with the
+  final one; frame 2 may precede the first shade-budget re-tune, which
+  moves pixels within the golden bar: ROADMAP F9); K1/K2 launches are
+  counted per frame; on warm frames the poll runs under
+  ``torch.cuda.set_sync_debug_mode("error")``. It also logs
+  the budgets and the peel-shade span's kernel time before and after the
+  re-tunes, the synchronizing calls of a warm ``render()``, init with
+  and without the tuned-config record (in a directory of its own), the
+  app's 2048^2 shadow launch against its plain version, and the wall ms
+  a frame of ``RenderLoop`` against ``render()`` + ``.cpu()``.
 Each phase is fatal: any failure exits non-zero without the final line.
 Before the last line it prints the card's name and power limit (as
 ``nvidia-smi`` reports them), one JSON line of per-kernel numbers and one
@@ -63,6 +82,7 @@ history (``BEFORE_SPLIT_MS``).
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -316,6 +336,10 @@ def main() -> None:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs a CUDA card", file=sys.stderr)
         sys.exit(2)
+    # the renderers here estimate their budgets: a record an earlier run
+    # left would skip the estimators (the app-path phase turns it on in a
+    # directory of its own for its one check of the record)
+    os.environ["RENDERENGINE_TUNED_CACHE"] = "0"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     root = Path(__file__).resolve().parent
@@ -335,6 +359,7 @@ def main() -> None:
     try:
         from renderengine_tpu_torch.core.config import RenderConfig
         from renderengine_tpu_torch.graph import frame as fr
+        from renderengine_tpu_torch.raster import binning
         from renderengine_tpu_torch.raster import cuda_raster as cr
         from renderengine_tpu_torch.raster.setup import triangle_setup
         from renderengine_tpu_torch.scene import procedural
@@ -682,6 +707,45 @@ def main() -> None:
             f"{sh_bound_ms:.4f} ms ({sh_bound_by}: {sh_ops:.3e} ops, "
             f"{sh_bytes:.3e} B)")
         del prep_sh, s_sh
+    except Exception as e:  # noqa: BLE001
+        fail(phase, e)
+
+    # phase 6b: the apps' default 2048^2 depth-only pass of the same sun
+    # (main_sample and live_viewer run --shadowExtent 2048) — K1 vs plain,
+    # timings; phase app-path checks that the app launches this table
+    phase = "k1-shadow-2048"
+    try:
+        e2, sun2 = 2048, sun
+        s2 = fr.shadow_setup(sd, params["shadow_viewproj"][sun2], e2)
+        # the (tile, triangle) spans bound the live pairs from above
+        spans2 = int(binning._tile_spans(s2, cr.TILE_H, cr.TILE_W)[4].sum())
+        prep2 = cr.prepare_pairs(s2, e2, e2, max_pairs=spans2 + 8192)
+        if int(prep2.bins.n_overflow):
+            raise AssertionError("2048^2 shadow pair overflow")
+        ntx2 = -(-e2 // cr.TILE_W)
+        err2, st2, sh2_plain_ms = k1_plain_check(
+            cr, prep2, ntx2, e2, e2, f"sponza sun shadow {e2}^2")
+        if err2 != 0.0:
+            raise AssertionError(f"the {e2}^2 shadow launch is not "
+                                 f"bit-exact")
+        b2 = prep2.bins
+        sh2_pairs, sh2_tiles = int(b2.counts.sum()), int(b2.counts.shape[0])
+        sh2_args = (prep2.pair_data, b2.starts, b2.counts, ntx2, e2, e2)
+        (sh2_solo,) = solo_counts(b2.counts)
+        sh2_solo_args = sh2_args[:2] + (sh2_solo,) + sh2_args[3:]
+        times["raster_tile_shadow_2048"] = time_shape(
+            f"shadow {e2}^2", lambda: cr.raster_tiles(*sh2_args, n_attrs=0),
+            lambda: cr.raster_tiles(*sh2_solo_args, n_attrs=0))
+        sh2_ms = times["raster_tile_shadow_2048"]["ms"]
+        sh2_bound_ms, sh2_bound_by, sh2_ops, sh2_bytes = k1_bound(
+            sh2_pairs, sh2_tiles, prep2.pair_data.shape[1], 0, st2["wins"])
+        log(f"phase k1-shadow-2048: map {sun2}: {sh2_pairs} pairs over "
+            f"{sh2_tiles} tiles (max {int(b2.counts.max())}/tile), "
+            f"{st2['wins']} depth wins; K1 {sh2_ms:.4f} ms, plain "
+            f"{sh2_plain_ms:.2f} ms, bound {sh2_bound_ms:.4f} ms "
+            f"({sh2_bound_by}: {sh2_ops:.3e} ops, {sh2_bytes:.3e} B)")
+        sh2_live, sh2_counts = prep2.pair_data[b2.pair_valid], b2.counts
+        del prep2, s2, sh2_args, sh2_solo_args
     except Exception as e:  # noqa: BLE001
         fail(phase, e)
 
@@ -1139,6 +1203,362 @@ def main() -> None:
     except Exception as e:  # noqa: BLE001
         fail(phase, e)
 
+    # phase: the app path, through the entry points a user calls:
+    # engine.init(), then main_sample.main() in process on the Sponza at
+    # 1920x1080 with the app's defaults (2048^2 shadow maps), per-pixel and
+    # --textureSpace; an orbit with the HUD; the poll under the sync guard;
+    # the re-tunes, the tuned record and the loop against sequential frames
+    del scene
+    torch.cuda.empty_cache()
+    phase = "app-path"
+    try:
+        import tempfile
+        import warnings
+
+        from renderengine_tpu_torch.apps import main_sample
+        from renderengine_tpu_torch.core import engine
+        from renderengine_tpu_torch.graph import render_loop
+        from renderengine_tpu_torch.tools import profile_frame
+        from renderengine_tpu_torch.utils import png
+        t_app = time.time()
+        t0 = time.time()
+        engine.init()
+        app = {"engine_init_s": time.time() - t0,
+               "device_info": engine.device_info()}
+        app_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_app_"))
+        orig_render = fr.FrameRenderer.render
+        orig_poll = fr.FrameRenderer._poll_overflow
+
+        def run_app(tag, extra, frames):
+            """main_sample in process; every render() recorded: its
+            renderer, the config it rendered with, its counters and its
+            K1/K2 launches by shape. Before the second frame the check
+            waits for the first (the app itself never does), so the
+            first frame's counters are consumed before it."""
+            calls = []
+
+            def render(self, view_props=None):
+                if len(calls) == 1:
+                    torch.cuda.synchronize()
+                before = dict(cr.variant_counts)
+                img, st = orig_render(self, view_props)
+                calls.append({"r": self, "cfg": self.config, "stats": st,
+                              "launches": {
+                                  v: cr.variant_counts[v] - before.get(v, 0)
+                                  for v in cr.variant_counts
+                                  if cr.variant_counts[v] != before.get(v,
+                                                                        0)}})
+                return img, st
+
+            def poll(self):
+                # warm frames: the poll must not make the host wait
+                if len(calls) >= 2:
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        return orig_poll(self)
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                return orig_poll(self)
+
+            out = app_dir / f"{tag}.png"
+            argv = ["--scenePath", "sponza", "--width", str(SPONZA_W),
+                    "--height", str(SPONZA_H), "--frames", str(frames),
+                    "--out", str(out)] + extra
+            reset_counts()
+            t0 = time.time()
+            with mock.patch.object(fr.FrameRenderer, "render", render), \
+                    mock.patch.object(fr.FrameRenderer, "_poll_overflow",
+                                      poll):
+                rc = main_sample.main(argv)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            if rc != 0 or len(calls) != frames:
+                raise AssertionError(f"{tag}: rc {rc}, {len(calls)} renders")
+            pngs = [png.read_png(str(out) if frames == 1 else
+                                 str(out.with_suffix("")) + f"_{i:04d}.png")
+                    for i in range(frames)]
+            for im in pngs:
+                if im.shape != (SPONZA_H, SPONZA_W, 4) or im.dtype != np.uint8:
+                    raise AssertionError(f"{tag}: PNG {im.shape} {im.dtype}")
+            counters = [{k: v.tolist() for k, v in c["stats"].items()}
+                        for c in calls]
+            log(f"phase app-path [{tag}]: {frames} frames in {wall:.1f} s "
+                f"(scene load + renderer set-up included); launches by "
+                f"frame {[{str(k): n for k, n in c['launches'].items()}
+                          for c in calls]}; counters {counters}")
+            return calls, pngs, counters, wall
+
+        def overflow_free(st, r):
+            return not (any(int(v) for k, v in st.items() if "overflow" in k)
+                        or r.shadow_overflow)
+
+        def check_frames(tag, calls, pngs, want_first, want_warm):
+            """Launches per frame; no overflow from the second frame on;
+            every frame from the second on equals render() with the config
+            that frame used (the controller may re-tune between frames),
+            byte for byte. Frames of different configs are held to each
+            other at the golden bar (a shade-budget re-tune moves the
+            peeled layer's aniso budget: ROADMAP F9)."""
+            r = calls[-1]["r"]
+            for i, c in enumerate(calls):
+                want = dict(want_warm)
+                if i == 0:
+                    want.update(want_first)
+                if c["launches"] != want:
+                    raise AssertionError(f"{tag} frame {i}: launches "
+                                         f"{c['launches']}, expected {want}")
+                if i >= 1 and not overflow_free(c["stats"], r):
+                    raise AssertionError(f"{tag} frame {i}: overflow after "
+                                         f"the first counters")
+            torch.cuda.synchronize()
+            _, fst = r.render()          # the poll settles the config
+            torch.cuda.synchronize()
+            final_cfg = r.config
+            r._react_overflow = False
+            want_img = {}
+            same = []
+            for im, c in zip(pngs[1:], calls[1:]):
+                if c["cfg"] not in want_img:
+                    r.config = c["cfg"]
+                    want_img[c["cfg"]] = r.render()[0].cpu().numpy()
+                same.append(bool(np.array_equal(im, want_img[c["cfg"]])))
+            r.config = final_cfg
+            r._react_overflow = True
+            final_same = [bool(c["cfg"] == final_cfg) for c in calls[1:]]
+            n_diff = [int((im != pngs[-1]).any(-1).sum()) for im in pngs[1:]]
+            frac, mx = goldens.golden_bar(pngs[1], pngs[-1])
+            log(f"phase app-path [{tag}]: frames 2-{len(pngs)} identical to "
+                f"render() with their own config: {same}; rendered with the "
+                f"final config: {final_same}; pixels differing from the "
+                f"last frame {n_diff}, frame 2 vs the last {frac:.6f} within"
+                f" 1/255, max {mx}/255; {len(want_img)} configs")
+            if not all(same) or not overflow_free(fst, r) or \
+                    not goldens.meets_bar(frac, mx):
+                raise AssertionError(f"{tag}: app frames differ from "
+                                     f"render()")
+            return r, {"same_as_render": same, "final_config": final_same,
+                       "pixels_differing_from_last": n_diff,
+                       "frame2_vs_last_bar": [frac, mx]}
+
+        # the per-pixel app frame
+        pp_calls, pp_pngs, pp_counters, pp_wall = run_app("per_pixel", [], 5)
+        n_app_maps = pp_calls[0]["r"].n_shadows
+        app_r, pp_check = check_frames("per-pixel", pp_calls, pp_pngs,
+                                       {shadow_v: n_app_maps},
+                                       {opaque_v: 1, peel_v: 1})
+        app_cfg = app_r.config
+        app["per_pixel"] = {"wall_s": pp_wall, "counters": pp_counters,
+                            "frames": pp_check,
+                            "shadow_extent": app_cfg.shadow_extent,
+                            "launches": [{str(k): n for k, n in
+                                          c["launches"].items()}
+                                         for c in pp_calls]}
+        app_shadow_launches = sum(c["launches"].get(shadow_v, 0)
+                                  for c in pp_calls)
+        # the re-tunes: the budgets of frame 1 and after the first change
+        first = pp_calls[0]["cfg"]
+        later = next((c["cfg"] for c in pp_calls[1:]
+                      if c["cfg"] != first), app_cfg)
+        retune = {"frame1": {"blend_layer_tile_budgets":
+                             list(first.blend_layer_tile_budgets),
+                             "penumbra_tile_budget":
+                             first.penumbra_tile_budget},
+                  "after_first_change": {
+                      "blend_layer_tile_budgets":
+                      list(later.blend_layer_tile_budgets),
+                      "penumbra_tile_budget": later.penumbra_tile_budget},
+                  "final": {"blend_layer_tile_budgets":
+                            list(app_cfg.blend_layer_tile_budgets),
+                            "penumbra_tile_budget":
+                            app_cfg.penumbra_tile_budget}}
+        # the app's 2048^2 shadow launch is the one phase k1-shadow-2048
+        # held to its plain version and timed: the same pair table
+        asd = app_r.scene_dev
+        au = torch.from_numpy(app_r.uniform_for_camera()).to(dev)
+        s2 = fr.shadow_setup(asd, fr.unpack_params(au, app_r.n_shadows)[
+            "shadow_viewproj"][sun2], app_cfg.shadow_extent)
+        prep2 = cr.prepare_pairs(s2, e2, e2,
+                                 max_pairs=app_r._shadow_budget_val)
+        same2 = (app_cfg.shadow_extent == e2
+                 and torch.equal(prep2.bins.counts, sh2_counts)
+                 and torch.equal(prep2.pair_data[prep2.bins.pair_valid],
+                                 sh2_live))
+        log(f"phase app-path: the app's {e2}^2 map {sun2} has the pair "
+            f"table timed in phase k1-shadow-2048: {same2}; "
+            f"{app_shadow_launches} shadow launches on the app path")
+        if not same2:
+            raise AssertionError("the app's shadow launch is another shape")
+        del prep2, s2, sh2_live, sh2_counts
+
+        # the peel-shade span's kernel time at frame 1's config and at the
+        # final one (the controller frozen while profiling)
+        app_r._react_overflow = False
+        for key, c in (("frame1", first), ("final", app_cfg)):
+            app_r.config = c
+            prof = profile_frame.profiled(app_r, 2, None)
+            retune[key]["peel_shade_ms"] = \
+                prof["span_device_ms_per_frame"]["frame.peel_shade"]
+            retune[key]["shade_ms"] = \
+                prof["span_device_ms_per_frame"]["frame.shade"]
+            retune[key]["wall_ms"] = prof["wall_ms_per_frame"]
+        app_r.config = app_cfg
+        app_r._react_overflow = True
+        app["retune"] = retune
+        log(f"phase app-path: re-tunes {retune}")
+        # synchronizing calls a whole warm render() makes (informational)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as wrec:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                app_r.render()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        sync_msgs = [str(w.message) for w in wrec
+                     if "synchroniz" in str(w.message)]
+        app["warm_render_sync_calls"] = len(sync_msgs)
+        log(f"phase app-path: a warm render() makes {len(sync_msgs)} "
+            f"synchronizing calls: {sorted(set(m[:80] for m in sync_msgs))}")
+
+        # the tuned record: a second renderer of the same scene and config
+        # adopts the first one's budgets without running an estimator
+        scene_app = app_r.scene_host
+        rec_dir = tempfile.mkdtemp(prefix="chip_smoke_tuned_")
+        with mock.patch.dict("os.environ", {
+                "RENDERENGINE_TUNED_CACHE": "1",
+                "RENDERENGINE_TORCH_CACHE_DIR": rec_dir}):
+            base_cfg = RenderConfig(width=SPONZA_W, height=SPONZA_H,
+                                    shadow_extent=app_cfg.shadow_extent)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            r_est = fr.FrameRenderer(scene_app, base_cfg)
+            torch.cuda.synchronize()
+            init_est = time.time() - t0
+
+            def refuse(self, *a):
+                raise AssertionError("an estimator ran")
+
+            with mock.patch.object(fr.FrameRenderer,
+                                   "_estimate_pair_budget", refuse), \
+                    mock.patch.object(fr.FrameRenderer,
+                                      "_estimate_blend_budgets", refuse), \
+                    mock.patch.object(fr.FrameRenderer,
+                                      "_estimate_shadow_budget", refuse):
+                t0 = time.time()
+                r_rec = fr.FrameRenderer(scene_app, base_cfg)
+                torch.cuda.synchronize()
+                init_rec = time.time() - t0
+            adopted = (r_rec.config == r_est.config
+                       and r_rec._shadow_budget_val == r_est._shadow_budget_val)
+        app["tuned_record"] = {"init_s_estimated": init_est,
+                               "init_s_from_record": init_rec,
+                               "adopted": adopted}
+        log(f"phase app-path: tuned record: init {init_est:.2f} s with the "
+            f"estimators, {init_rec:.2f} s from the record; adopted "
+            f"{adopted}")
+        if not adopted:
+            raise AssertionError("the tuned record was not adopted")
+        del r_est, r_rec
+
+        def loop_vs_sequential(r, n=10):
+            """Wall ms a frame: RenderLoop with two frames in flight, then
+            render() + .cpu() one frame at a time, on one renderer."""
+            with mock.patch.object(render_loop, "FrameRenderer",
+                                   lambda *a, **k: r):
+                loop = render_loop.RenderLoop(r.scene_host, r.config,
+                                              target_fps=0.0)
+            for _ in range(2):
+                loop.render_one()
+            loop.drain()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                loop.render_one()
+            loop.drain()
+            loop_ms = (time.perf_counter() - t0) * 1e3 / n
+            t0 = time.perf_counter()
+            for _ in range(n):
+                r.render()[0].cpu()
+            seq_ms = (time.perf_counter() - t0) * 1e3 / n
+            return {"loop_ms": loop_ms, "sequential_ms": seq_ms}
+
+        app["loop_timing"] = {"per_pixel": loop_vs_sequential(app_r)}
+        del app_r, pp_calls, scene_app
+        torch.cuda.empty_cache()
+
+        # the texture-space app frame: one K2 launch a frame
+        ts_calls, ts_pngs, ts_counters, ts_wall = run_app(
+            "tss", ["--textureSpace"], 5)
+        ts_r, ts_check = check_frames("texture-space", ts_calls, ts_pngs,
+                                      {shadow_v: ts_calls[0]["r"].n_shadows},
+                                      {k2_v4: 1})
+        app["tss"] = {"wall_s": ts_wall, "counters": ts_counters,
+                      "frames": ts_check,
+                      "launches": [{str(k): n for k, n in
+                                    c["launches"].items()}
+                                   for c in ts_calls]}
+        app["loop_timing"]["tss"] = loop_vs_sequential(ts_r)
+        del ts_r, ts_calls
+        torch.cuda.empty_cache()
+
+        # an orbit with the HUD: it runs, and once the counters of the
+        # last view are consumed a frame there has no overflow
+        ob_calls, ob_pngs, ob_counters, ob_wall = run_app(
+            "orbit", ["--orbit", "--hud"], 8)
+        ob_r = ob_calls[-1]["r"]
+        torch.cuda.synchronize()
+        ob_r.render()
+        torch.cuda.synchronize()
+        _, ob_st = ob_r.render()
+        moved = not np.array_equal(ob_pngs[1], ob_pngs[-1])
+        app["orbit"] = {"wall_s": ob_wall, "counters": ob_counters,
+                        "moved": moved}
+        log(f"phase app-path [orbit]: camera moved {moved}; counters after "
+            f"growth {({k: v.tolist() for k, v in ob_st.items()})}")
+        if not moved or not overflow_free(ob_st, ob_r):
+            raise AssertionError("orbit: the camera did not move or the "
+                                 "counters stayed over")
+        del ob_r, ob_calls
+        torch.cuda.empty_cache()
+
+        # the browser viewer's entry point: three frames presented (PNG
+        # encoded for the stream) on the card, then it stops
+        from renderengine_tpu_torch.apps import live_viewer
+        seen = []
+        orig_present = live_viewer.LiveViewer._present
+
+        def present(self, frame):
+            seen.append(frame.shape)
+            return orig_present(self, frame)
+
+        reset_counts()
+        t0 = time.time()
+        with mock.patch.object(live_viewer.LiveViewer, "_present", present):
+            rc = live_viewer.main(["--scenePath", "sponza", "--width",
+                                   str(SPONZA_W), "--height", str(SPONZA_H),
+                                   "--frames", "3", "--port", "0", "--fps",
+                                   "0"])
+        torch.cuda.synchronize()
+        lv = {"rc": rc, "frames": len(seen), "wall_s": time.time() - t0,
+              "k1_launches": cr.launch_counts["raster_tile"]}
+        app["live_viewer"] = lv
+        log(f"phase app-path [live_viewer]: {lv}")
+        if rc != 0 or seen != [(SPONZA_H, SPONZA_W, 4)] * 3 or \
+                lv["k1_launches"] < 6:
+            raise AssertionError(f"live_viewer: {lv}, frames {seen}")
+        app["loop_timing_note"] = ("wall ms a frame, 10 frames each, one "
+                                   "renderer: RenderLoop (two frames in "
+                                   "flight) vs render() + .cpu()")
+        app["wall_s"] = time.time() - t_app
+        log(f"phase app-path: loop vs sequential {app['loop_timing']}; "
+            f"phase {app['wall_s']:.1f} s")
+        for f in app_dir.iterdir():
+            f.unlink()
+        app_dir.rmdir()
+    except Exception as e:  # noqa: BLE001
+        fail(phase, e)
+
     def row(name, launches, err, ms, plain, bound, by, k2=False):
         t = times[name]
         return {"name": name, "route": "cuda",
@@ -1170,12 +1590,14 @@ def main() -> None:
             max_err["k2_4"],
             k2[4]["ms"], k2[4]["plain_ms"], k2[4]["bound_ms"],
             k2[4]["bound_by"], k2=True),
+        row("raster_tile_shadow_2048", app_shadow_launches, err2, sh2_ms,
+            sh2_plain_ms, sh2_bound_ms, sh2_bound_by),
     ]
     for k in kernels:
         log(f"{k['name']}: {k['ms']!r} ms in this run, device "
             f"{k['device_ms']!r} ms, host {k['host_ms']!r} ms a call; one "
             f"block per tile, before the split walk (history, PERF.md): "
-            f"{BEFORE_SPLIT_MS[k['name']]!r} ms")
+            f"{BEFORE_SPLIT_MS.get(k['name'])!r} ms")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"timings": {
@@ -1224,6 +1646,13 @@ def main() -> None:
                 "launches_by_path": {
                     path: {str(k): v for k, v in c.items()}
                     for path, c in path_launches.items()}},
+        "shadow_2048": {"ms": sh2_ms, "plain_ms": sh2_plain_ms,
+                        "bound_ms": sh2_bound_ms, "bound_by": sh2_bound_by,
+                        "pairs": sh2_pairs, "tiles": sh2_tiles,
+                        "depth_wins": st2["wins"], "ops": sh2_ops,
+                        "bytes": sh2_bytes,
+                        "launches_app_path": app_shadow_launches},
+        "app": app,
         "width": SPONZA_W, "height": SPONZA_H, "card": card,
         "wall_s": time.time() - t_start}}), flush=True)
     print(json.dumps({"ok": True, "device": {

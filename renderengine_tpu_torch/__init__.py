@@ -5,14 +5,22 @@ forward renderer as array programs), written in PyTorch for an NVIDIA
 Hopper GPU. The layout mirrors the JAX package, so each module's
 counterpart sits at the same path:
 
-core     config, host math (glm/Vulkan-convention mat4 stack), AABB.
-scene    host-side scene state, texture atlas, procedural scenes.
+core     config, host math (glm/Vulkan-convention mat4 stack), AABB, CLI
+         arguments, virtual asset paths, engine init.
+scene    host-side scene state, texture atlas, procedural scenes, scene
+         loaders (OBJ, glTF/GLB, Collada, binary FBX), input and the
+         camera controller.
 raster   triangle setup, tile binning, the brute-force raster oracle and
-         the tile raster kernel (``csrc/raster_tile.cu``) with its plain
-         PyTorch version.
-shading  sRGB, texture sampling, PBR (Filament BRDF), Blinn-Phong.
-graph    per-frame uniforms and the frame pipeline (``FrameRenderer``).
-utils    PNG IO.
+         the tile raster kernels (``csrc/raster_tile.cu``) with their
+         plain PyTorch versions.
+shading  sRGB, texture sampling, PBR (Filament BRDF), Blinn-Phong,
+         shadows, skybox, light charts, IBL capture, grid and overlay quad.
+graph    per-frame uniforms, the frame pipeline and its reactive runtime
+         (``FrameRenderer``), the render loop (``RenderLoop``).
+apps     ``main_sample`` (frames to PNG), ``live_viewer`` (browser),
+         ``editor`` and project files.
+native   host asset-parsing helpers in C++ (PNG, OBJ, JPEG), via ctypes.
+utils    PNG/EXR/image IO, HUD, logging, profiling.
 
 The package imports torch and numpy, never JAX. Its entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``; on the CPU every

@@ -17,19 +17,28 @@ tables, and each frame runs the specular chart pass; the screen passes
 then sample the chart tables. On the ``cuda`` backend the opaque pass and
 the first two translucent layers share one K2 launch.
 
-Not ported yet, and refused by ``FrameRenderer`` rather than skipped: the
-editor grid and the shadow-quad overlay (``ROADMAP.md`` Queue 1).
+The reactive runtime (``FrameRenderer``): budgets sized at init from the
+initial camera (or adopted from the tuned-config record of an earlier
+process), every frame's overflow counters copied to pinned host memory
+without a host wait and consumed by a non-blocking poll, which grows what
+overflowed and tightens the per-layer shade and penumbra budgets to the
+observed coverage. The overlays (editor grid, shadow-map preview quad)
+composite after the translucent pass.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 import logging
+import os
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
+from ..core import engine
 from ..core.config import CullMode, RasterConfig, RenderConfig, ShadingModel
 from ..device import resolve_device
 from ..raster import binning
@@ -44,6 +53,7 @@ from ..shading import grid as grid_mod
 from ..shading import lightchart, pbr, phong, sampling, skybox
 from ..shading import shadow as shadow_mod
 from ..shading.srgb import encode_srgb8
+from ..shading.textured_quad import draw_textured_quad
 from . import uniforms
 from .uniforms import unpack_params
 
@@ -55,25 +65,69 @@ _log = logging.getLogger(__name__)
 # opaque+dual-peel kernel (K2) applies (parity tests compare both paths)
 _FORCE_UNMERGED = False
 
-# config switches of features that later slices port, with the slice each
-# waits for (ROADMAP.md Queue 1)
-_UNPORTED = (
-    ("grid", "the rest-of-the-frame slice"),
-    ("show_shadow_quad", "the rest-of-the-frame slice"),
-)
+
+# --- tuned-config persistence ----------------------------------------------
+# The reference persists its compiled-shader state across runs
+# (Intermediate/Projects/shader_cache.json, compile-shaders.py:154-213); the
+# analog here is THIS record: the budget controller's settled values, so a
+# later process skips the init-time estimators and starts from the budgets
+# the re-tunes settled on. ``RENDERENGINE_TUNED_CACHE=0`` turns it off.
+
+_TUNED_CFG_FIELDS = ("translucency_tile_fraction", "penumbra_tile_budget",
+                     "blend_pair_budget", "blend_tile_budget",
+                     "blend_layer_tile_budgets")
+_TUNED_RASTER_FIELDS = ("pairs_per_tri", "pair_budget", "dense_k")
+
+
+def _tuned_path() -> str:
+    return os.path.join(engine.cache_dir(), "tuned_configs.json")
+
+
+def _tuned_enabled() -> bool:
+    return os.environ.get("RENDERENGINE_TUNED_CACHE", "1") != "0"
+
+
+def _load_tuned(key: str) -> dict | None:
+    if not _tuned_enabled():
+        return None
+    try:
+        with open(_tuned_path()) as f:
+            rec = json.load(f).get(key)
+        if rec:
+            rec = dict(rec)
+            if "blend_layer_tile_budgets" in rec:
+                rec["blend_layer_tile_budgets"] = tuple(
+                    rec["blend_layer_tile_budgets"])
+        return rec
+    except (OSError, ValueError):
+        return None
+
+
+def _save_tuned(key: str, rec: dict) -> None:
+    if not _tuned_enabled():
+        return
+    path = _tuned_path()
+    try:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        try:
+            with open(path) as f:
+                all_rec = json.load(f)
+        except (OSError, ValueError):
+            all_rec = {}
+        all_rec[key] = rec
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
+            json.dump(all_rec, f, indent=1)
+        os.replace(tmp, path)
+    except OSError:
+        pass  # cache dir unwritable: the record is only a shortcut
 
 
 def check_config(config: RenderConfig) -> None:
-    """Raise NotImplementedError for a config that turns on a feature this
-    package does not render yet, naming the slice it waits for, and
-    ValueError for a texture-space config the mode does not support (it
-    needs PBR without the alpha-mask pass and ``debug_views=False``, and
-    the pre-shaded switches need ``texture_space``)."""
-    for name, slice_ in _UNPORTED:
-        if getattr(config, name):
-            raise NotImplementedError(
-                f"RenderConfig.{name}=True is not ported yet: it arrives "
-                f"with {slice_}; set {name}=False")
+    """Raise ValueError for a texture-space config the mode does not
+    support (it needs PBR without the alpha-mask pass and
+    ``debug_views=False``, and the pre-shaded switches need
+    ``texture_space``)."""
     if config.texture_space:
         if config.shading != ShadingModel.PBR or config.alpha_mask:
             raise ValueError("texture_space supports the PBR path without "
@@ -761,6 +815,23 @@ def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
                 rgb = rgb * (1.0 - a[..., None]) \
                     + rgba_t[..., :3] * a[..., None]
 
+    # editor ground grid (drawable form of the reference's never-drawn
+    # Grid, SURVEY 2.3; blended + depth-tested against the opaque z-buffer)
+    if config.grid:
+        with record_function("frame.overlay"):
+            rgb = grid_mod.render_grid(params["inv_vp"], params["view"],
+                                       params["proj"], depth_eff, rgb,
+                                       full_height=fh)
+
+    # shadow-map preview overlay (TexturedQuad grayscale mode): the packed
+    # 4x4 stride-2 windows hold even texel (2a-2, 2b-2) in the low 16 bits
+    # of word 0 (int32 bit views here); a half-res preview is plenty
+    if config.show_shadow_quad and shadow_maps is not None:
+        with record_function("frame.overlay"):
+            draw_src = (shadow_maps.blocks[0, 1:, 1:, 0] & 0xFFFF).to(
+                torch.float32) / 65535.0
+            rgb = draw_textured_quad(rgb, draw_src, grayscale=True)
+
     with record_function("frame.encode"):
         if config.ssaa > 1:
             f = config.ssaa
@@ -788,7 +859,11 @@ class FrameRenderer:
     ``mark_shadows_dirty()`` (reference dirty-flag semantics). ``device``
     defaults to ``cuda`` (and raises without it); ``backend`` defaults to
     ``"cuda"``, the tile kernel (its plain PyTorch version on a CPU
-    device)."""
+    device).
+
+    With ``auto_tune_pairs`` on the ``cuda`` backend the budgets react to
+    the frames: each frame's counters are queued for ``_poll_overflow``,
+    which the next ``render()`` runs without waiting on the device."""
 
     # growth ceiling of the pair budgets (a packed table is P x 176 B)
     _MAX_PAIRS = 2_000_000
@@ -827,24 +902,54 @@ class FrameRenderer:
         self._has_translucent = int(dev_np["n_blend"]) > 0
         self._has_mask = int(dev_np.get("n_mask", 0)) > 0
         self._shadow_lights = _static_shadow_lights(dev_np)
-        # the budgets below are sized at init from the initial camera;
-        # every one has an overflow counter in the frame's stats
+        # the budgets below are sized at init from the initial camera, or
+        # adopted from the tuned-config record (the settled budgets of an
+        # earlier process: the controller's grows ratchet, so the record
+        # converges); every one has an overflow counter in the stats
         tune = backend == "cuda" and config.raster.auto_tune_pairs
         self._react_overflow = tune
-        if tune:
+        self._tuned_key = self._make_tuned_key(dev_np) if tune else None
+        tuned = _load_tuned(self._tuned_key) if tune else None
+        self._tuned_shadow_budget = None
+        if tuned:
+            rc_kw = {k: tuned[k] for k in _TUNED_RASTER_FIELDS if k in tuned}
+            cfg_kw = {k: tuned[k] for k in _TUNED_CFG_FIELDS if k in tuned}
+            if rc_kw:
+                cfg_kw["raster"] = dataclasses.replace(config.raster, **rc_kw)
+            self.config = config = config.replace(**cfg_kw)
+            self._tuned_shadow_budget = tuned.get("shadow_budget")
+        elif tune:
             ppt, abs_budget, dense_k = self._estimate_pair_budget()
             self.config = config = config.replace(raster=dataclasses.replace(
                 config.raster, pairs_per_tri=ppt, pair_budget=abs_budget,
                 dense_k=dense_k))
-        if tune and self._has_translucent and config.translucency:
+        if (tune and not tuned and self._has_translucent
+                and config.translucency):
             frac, blend_budget, tile_budget = self._estimate_blend_budgets()
             self.config = config = config.replace(
                 translucency_tile_fraction=min(
                     config.translucency_tile_fraction, frac),
                 blend_pair_budget=blend_budget,
                 blend_tile_budget=tile_budget)
+        # the controller (``_poll_overflow``): queued counters of frames in
+        # flight, observed per-peel-layer and penumbra coverage
+        self._pending_overflow = []
+        self._blend_obs = []
+        self._polls_since_blend_retune = 0
+        # consecutive low observations before a shrink. Must exceed the
+        # period of typical camera motion (an orbit revisits its densest
+        # view every few dozen frames): a shrink based on a shorter window
+        # re-overflows at the next peak and the controller oscillates
+        self.blend_shrink_after = 64
+        self.blend_tile_floor = 16     # smallest per-layer shade budget
+        self._pen_obs = []
+        self._polls_since_pen_retune = 0
+        self._pen_tuned = False
+        # shrink floors: budgets an overflow proved insufficient (ratchet)
+        self._blend_floor = ()
+        self._pen_floor = 0
         # two-stage PCF pays once the window table dwarfs the coarse one:
-        # 35% of the shade tiles
+        # start at 35% of the shade tiles and let observation tighten it
         if (tune and self.n_shadows > 0 and config.shadow_extent >= 1024
                 and config.penumbra_tile_budget == 0):
             self.config = config = config.replace(
@@ -852,7 +957,9 @@ class FrameRenderer:
                     256, self._shade_tile_total() * 35 // 100))
         # the shadow pass keeps its own pair budget: its tile spans differ
         # wildly from the camera view's (an ortho fit of the whole scene)
-        if tune and self.n_shadows > 0:
+        if self._tuned_shadow_budget:
+            self._shadow_budget_val = int(self._tuned_shadow_budget)
+        elif tune and self.n_shadows > 0:
             self._shadow_budget_val = self._estimate_shadow_budget()
         else:
             self._shadow_budget_val = _pair_budget(
@@ -861,7 +968,6 @@ class FrameRenderer:
         self._shadows_dirty = True
         self._shadow_vp_cache = None
         self.shadow_overflow = 0    # dropped pairs of the last shadow pass
-        self._last_stats = None     # the previous frame's counters
         self._alpha_is_factor = False
         if config.texture_space:
             # device bakes (once per upload): per-texel geometry, the full
@@ -875,6 +981,39 @@ class FrameRenderer:
                     self._baked_exposure, lightchart.host_alpha_is_factor(
                         dev_np, getattr(scene_host, "textures", None)))
             self.scene_dev.update(up)
+        if tune and not tuned:
+            self._save_tuned_now()   # estimator results; re-tunes update it
+
+    def _make_tuned_key(self, dev_np: dict) -> str:
+        """Content key of the tuned-config record: scene geometry + the
+        BASE config (tuned fields at their defaults) + backend + shadow
+        map count."""
+        h = hashlib.md5()
+        for k in ("positions", "tri_vidx", "n_tris", "n_blend"):
+            if k in dev_np:
+                h.update(np.ascontiguousarray(np.asarray(dev_np[k])).tobytes())
+        base = self.config.replace(
+            **{k: getattr(RenderConfig(), k) for k in _TUNED_CFG_FIELDS})
+        base = base.replace(raster=dataclasses.replace(
+            base.raster, **{k: getattr(RasterConfig(), k)
+                            for k in _TUNED_RASTER_FIELDS}))
+        h.update(repr(base).encode())
+        h.update(self.backend.encode())
+        h.update(str(self.n_shadows).encode())
+        return h.hexdigest()
+
+    def _save_tuned_now(self) -> None:
+        """Write the CURRENT budgets to the tuned-config record (after the
+        init estimates and after every controller re-tune)."""
+        if not self._tuned_key:
+            return
+        cfg = self.config
+        rec = {k: getattr(cfg, k) for k in _TUNED_CFG_FIELDS}
+        rec["blend_layer_tile_budgets"] = list(rec["blend_layer_tile_budgets"])
+        for k in _TUNED_RASTER_FIELDS:
+            rec[k] = getattr(cfg.raster, k)
+        rec["shadow_budget"] = int(self._shadow_budget_val)
+        _save_tuned(self._tuned_key, rec)
 
     def _shade_tile_total(self) -> int:
         h, w = self.config.render_extent()
@@ -1013,98 +1152,294 @@ class FrameRenderer:
         self.shadow_overflow = sov
         self._shadows_dirty = False
 
-    def _grow_budgets(self, st: dict) -> None:
-        """React to the previous frame's overflow counters: grow every
-        budget that overflowed (the JAX package's growth rules), so a
-        camera move into a denser view costs one frame with dropped
-        geometry or estimated penumbra instead of every frame after it.
-        Budgets only grow here; the shrinking re-tunes from observed
-        coverage are not ported yet."""
-        keys = [k for k in ("pair_overflow", "pair_tail_overflow",
-                            "blend_pair_overflow", "penumbra_overflow",
-                            "penumbra_tiles") if k in st]
-        # one device read for all counters
-        val = dict(zip(keys, torch.stack(
-            [st[k].to(torch.int64) for k in keys]).tolist()))
-        if not any(val[k] for k in keys if k != "penumbra_tiles"):
+    # the poll waits on an unfinished frame only past this many queued ones
+    # (a memory backstop: frames finish in order, so the queue stays short)
+    _MAX_PENDING = 16
+
+    def _queue_stats(self, stats: dict) -> None:
+        """Start the copy of one frame's counters to the host and queue it
+        for ``_poll_overflow``: one int64 vector copied into pinned memory
+        with ``non_blocking=True`` on the stream that computed it, and an
+        event recorded after the copy, so the event's completion means the
+        bytes have landed. On a CPU device the entry is ready at once."""
+        keys = tuple(stats)
+        shapes = tuple(tuple(stats[k].shape) for k in keys)
+        flat = torch.cat([stats[k].reshape(-1).to(torch.int64) for k in keys])
+        if flat.device.type != "cuda":
+            self._pending_overflow.append(((keys, shapes, flat), None))
             return
-        cfg = self.config
-        rc = cfg.raster
-        t = int(self.scene_dev["tri_vidx"].shape[0])
-        ov = val["pair_overflow"]
-        if val["pair_tail_overflow"] > 0 and rc.dense_k:
-            # span>dense_k triangles overflowed the dense binning's
-            # big-list cap: budget growth can never fix these, so grow K;
-            # past 16 fall back to the capless fill path
-            nk = rc.dense_k + max(2, rc.dense_k // 2)
-            nk = nk if nk <= 16 else 0
-            _log.warning("dense binning big-cap overflow (%d dropped): "
-                         "dense_k %d -> %s", val["pair_tail_overflow"],
-                         rc.dense_k, nk or "fill path")
-            rc = dataclasses.replace(rc, dense_k=nk)
-        if ov > 0 and 0 < rc.pair_budget < self._MAX_PAIRS:
-            # the overflow count is exact (live = budget + dropped): grow
-            # straight to the observed need plus 15% headroom
-            need = rc.pair_budget + ov
-            nb = min(self._MAX_PAIRS, max(need + need // 7 + 8192,
-                                          rc.pair_budget + 8192))
-            _log.warning("pair budget overflow (%d dropped): budget %d -> "
-                         "%d", ov, rc.pair_budget, nb)
-            rc = dataclasses.replace(rc, pair_budget=nb)
-        elif (ov > 0 and rc.pairs_per_tri < 64
-                and rc.pairs_per_tri * t < self._MAX_PAIRS):
-            new_ppt = min(64, rc.pairs_per_tri + max(1, rc.pairs_per_tri // 2))
-            _log.warning("pair budget overflow (%d dropped): pairs_per_tri "
-                         "%d -> %d", ov, rc.pairs_per_tri, new_ppt)
-            rc = dataclasses.replace(rc, pairs_per_tri=new_ppt)
-        if rc is not cfg.raster:
-            cfg = cfg.replace(raster=rc)
-        if val["blend_pair_overflow"] > 0:
-            # the counter folds pair, sparse-grid tile AND sparse-shade
-            # tile overflow; grow every budget that exists
-            changed = {}
-            if 0 < cfg.blend_pair_budget < self._MAX_PAIRS:
-                changed["blend_pair_budget"] = cfg.blend_pair_budget * 2
-            if cfg.blend_tile_budget:
-                changed["blend_tile_budget"] = min(
-                    2 * cfg.blend_tile_budget, self._MAX_PAIRS)
-            if cfg.translucency_tile_fraction < 1.0:
-                changed["translucency_tile_fraction"] = min(
-                    1.0, 2.0 * cfg.translucency_tile_fraction)
-            if cfg.blend_layer_tile_budgets:
+        host = torch.empty(flat.shape, dtype=torch.int64, pin_memory=True)
+        stream = torch.cuda.current_stream(flat.device)
+        host.copy_(flat, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(stream)
+        self._pending_overflow.append(((keys, shapes, host), ev))
+
+    @staticmethod
+    def _read_stats(entry) -> dict:
+        """A queued entry's counters as host values: ints, and numpy
+        arrays for the per-layer counts."""
+        keys, shapes, host = entry
+        vals = host.tolist()
+        out, i = {}, 0
+        for k, shape in zip(keys, shapes):
+            n = int(np.prod(shape, dtype=np.int64))
+            out[k] = (vals[i] if not shape
+                      else np.asarray(vals[i:i + n], np.int64).reshape(shape))
+            i += n
+        return out
+
+    def _poll_overflow(self) -> None:
+        """Consume the queued counters of frames that have finished; on a
+        nonzero count grow the overflowing budget (opaque pairs or
+        ``dense_k``, the blend budgets, the penumbra budget): a one-frame
+        glitch instead of silently dropped geometry when the camera enters
+        a dense view. Never waits on an unfinished frame unless more than
+        ``_MAX_PENDING`` are queued. Without growth, the per-layer shade
+        and penumbra budgets follow the observed coverage
+        (``_maybe_retune_*``). The JAX package's controller, decision for
+        decision."""
+        grew = False
+        while self._pending_overflow:
+            entry, ev = self._pending_overflow[0]
+            ready = ev is None or ev.query()
+            # NEVER wait on an unfinished frame: popping an unready head
+            # would serialize host and device inside the dispatch loop
+            if (not grew and len(self._pending_overflow) <= self._MAX_PENDING
+                    and not ready):
+                break
+            self._pending_overflow.pop(0)
+            if grew:
+                continue        # rendered with the old budgets
+            if not ready:
+                ev.synchronize()    # the queue is too deep: wait
+            st = self._read_stats(entry)
+            if "blend_shade_tiles" in st:
+                self._observe_blend_tiles(st["blend_shade_tiles"])
+            if "penumbra_tiles" in st:
+                self._observe_penumbra(int(st["penumbra_tiles"]))
+            cfg = self.config
+            rc = cfg.raster
+            t = int(self.scene_dev["tri_vidx"].shape[0])
+            ov = int(st["pair_overflow"])
+            tail_ov = int(st.get("pair_tail_overflow", 0))
+            if tail_ov > 0 and rc.dense_k:
+                # span>dense_k triangles overflowed the dense binning's
+                # big-list cap: budget growth can never fix these, so grow
+                # K; past 16 fall back to the capless fill path
+                nk = rc.dense_k + max(2, rc.dense_k // 2)
+                nk = nk if nk <= 16 else 0
+                _log.warning("dense binning big-cap overflow (%d dropped): "
+                             "dense_k %d -> %s", tail_ov, rc.dense_k,
+                             nk or "fill path")
+                cfg = cfg.replace(raster=dataclasses.replace(rc, dense_k=nk))
+                rc = cfg.raster
+            if ov > 0 and 0 < rc.pair_budget < self._MAX_PAIRS:
+                # the overflow count is exact (live = budget + dropped):
+                # grow straight to the observed need plus 15% headroom
+                need = rc.pair_budget + ov
+                nb = min(self._MAX_PAIRS, max(need + need // 7 + 8192,
+                                              rc.pair_budget + 8192))
+                _log.warning("pair budget overflow (%d dropped): budget %d "
+                             "-> %d", ov, rc.pair_budget, nb)
+                cfg = cfg.replace(raster=dataclasses.replace(
+                    rc, pair_budget=nb))
+            elif (ov > 0 and rc.pairs_per_tri < 64
+                    and rc.pairs_per_tri * t < self._MAX_PAIRS):
+                new_ppt = min(64, rc.pairs_per_tri
+                              + max(1, rc.pairs_per_tri // 2))
+                _log.warning("pair budget overflow (%d dropped): "
+                             "pairs_per_tri %d -> %d", ov, rc.pairs_per_tri,
+                             new_ppt)
+                cfg = cfg.replace(raster=dataclasses.replace(
+                    rc, pairs_per_tri=new_ppt))
+            blend_ov = int(st["blend_pair_overflow"])
+            if blend_ov > 0:
+                # the counter folds pair, sparse-grid tile AND sparse-shade
+                # tile overflow; grow every budget that exists. Per-layer
+                # shade budgets jump straight to 2x the OBSERVED coverage
+                # when that is more than doubling.
+                changed = {}
+                bb = cfg.blend_pair_budget
+                if 0 < bb < self._MAX_PAIRS:
+                    changed["blend_pair_budget"] = bb * 2
+                if cfg.blend_tile_budget:
+                    changed["blend_tile_budget"] = min(
+                        2 * cfg.blend_tile_budget, self._MAX_PAIRS)
+                if cfg.translucency_tile_fraction < 1.0:
+                    changed["translucency_tile_fraction"] = min(
+                        1.0, 2.0 * cfg.translucency_tile_fraction)
+                if cfg.blend_layer_tile_budgets:
+                    total = self._shade_tile_total()
+                    obs = (self._blend_obs[-1] if self._blend_obs
+                           else [0] * len(cfg.blend_layer_tile_budgets))
+                    changed["blend_layer_tile_budgets"] = tuple(
+                        min(total, max(2 * b, 2 * int(o)))
+                        for b, o in zip(cfg.blend_layer_tile_budgets, obs))
+                if changed:
+                    _log.warning("blend budget overflow (%d dropped): "
+                                 "growing %s", blend_ov, sorted(changed))
+                    cfg = cfg.replace(**changed)
+                    # ratchet: the pre-grow budgets are PROVEN too small.
+                    # Floor future shrinks at the grown values and demand
+                    # a fresh low streak, or an orbiting camera oscillates
+                    # shrink -> overflow -> grow
+                    if "blend_layer_tile_budgets" in changed:
+                        grown = changed["blend_layer_tile_budgets"]
+                        self._blend_floor = tuple(
+                            max(a, b) for a, b in zip(
+                                grown, self._blend_floor
+                                or (0,) * len(grown)))
+                    self._blend_obs.clear()
+                    self._polls_since_blend_retune = 0
+            pen_ov = int(st.get("penumbra_overflow", 0))
+            if pen_ov > 0 and cfg.penumbra_tile_budget:
+                # over-budget penumbra segments rendered the fully-shadowed
+                # estimate this frame: jump to 1.5x the observed count
                 total = self._shade_tile_total()
-                obs = st["blend_shade_tiles"].tolist()
-                changed["blend_layer_tile_budgets"] = tuple(
-                    min(total, max(2 * b, 2 * int(o)))
-                    for b, o in zip(cfg.blend_layer_tile_budgets, obs))
-            if changed:
-                _log.warning("blend budget overflow (%d dropped): growing "
-                             "%s", val["blend_pair_overflow"],
-                             sorted(changed))
-                cfg = cfg.replace(**changed)
-        if val.get("penumbra_overflow", 0) > 0 and cfg.penumbra_tile_budget:
-            # over-budget penumbra segments rendered the fully-shadowed
-            # estimate this frame: jump to 1.5x the observed count
-            obs = val["penumbra_tiles"]
-            nb = min(self._shade_tile_total(),
-                     max(2 * cfg.penumbra_tile_budget, obs + obs // 2))
-            if nb > cfg.penumbra_tile_budget:
-                _log.warning("penumbra tile budget overflow (%d over): %d "
-                             "-> %d", val["penumbra_overflow"],
-                             cfg.penumbra_tile_budget, nb)
-                cfg = cfg.replace(penumbra_tile_budget=nb)
-        self.config = cfg
+                obs = int(st["penumbra_tiles"])
+                nb = min(total, max(2 * cfg.penumbra_tile_budget,
+                                    obs + obs // 2))
+                if nb > cfg.penumbra_tile_budget:
+                    _log.warning("penumbra tile budget overflow (%d over): "
+                                 "%d -> %d", pen_ov,
+                                 cfg.penumbra_tile_budget, nb)
+                    cfg = cfg.replace(penumbra_tile_budget=nb)
+                    self._pen_floor = max(self._pen_floor, nb)
+                    self._pen_obs.clear()
+                    self._polls_since_pen_retune = 0
+            if cfg is not self.config:
+                self.config = cfg
+                self._save_tuned_now()
+                grew = True
+        if not grew:
+            self._maybe_retune_blend_layers()
+            self._maybe_retune_penumbra()
+
+    def _observe_blend_tiles(self, counts: np.ndarray) -> None:
+        self._blend_obs.append(np.asarray(counts).astype(np.int64))
+        if len(self._blend_obs) > max(64, self.blend_shrink_after):
+            self._blend_obs.pop(0)
+        self._polls_since_blend_retune += 1
+
+    def _maybe_retune_blend_layers(self) -> None:
+        """Drive the per-peel-layer sparse-shade budgets from OBSERVED
+        coverage (previous frames' covered-tile counts) instead of the
+        initial-camera estimate: deeper layers usually cover far less than
+        layer 1 (a screen-filling banner has little banner-behind-banner).
+
+        Policy:
+        - first ready observation -> set budgets = 2x observed, once;
+        - shrink only after ``blend_shrink_after`` consecutive
+          observations all below 1/4 of budget (growth is the overflow
+          counter's job, and it is exact)."""
+        if not self._blend_obs or not self._react_overflow:
+            return
+        n_tiles = self._shade_tile_total()
+        cur = self.config.blend_layer_tile_budgets
+        first = not cur
+
+        def target(c: int) -> int:
+            # 2x headroom; saturate to the dense path near full coverage
+            # (the sparse gather/scatter is pure overhead there)
+            t = 2 * int(c)
+            return n_tiles if t >= n_tiles else \
+                min(n_tiles, max(self.blend_tile_floor, t))
+
+        def floored(vals):
+            if not self._blend_floor:
+                return vals
+            fl = self._blend_floor + (0,) * (len(vals)
+                                             - len(self._blend_floor))
+            return tuple(max(v, f) for v, f in zip(vals, fl))
+
+        if first:
+            new = floored(tuple(target(c) for c in self._blend_obs[-1]))
+        else:
+            window = self._blend_obs[-self.blend_shrink_after:]
+            due = (len(window) >= self.blend_shrink_after
+                   and self._polls_since_blend_retune
+                   >= self.blend_shrink_after)
+            if not due:
+                return
+            worst = np.maximum.reduce(window)
+            raw = tuple(target(c) for c in worst)
+            new = floored(raw)
+            # shrink-only here, and only across a real gap
+            if not (len(new) == len(cur)
+                    and all(b <= c for b, c in zip(new, cur))
+                    and any(2 * b < c for b, c in zip(new, cur))):
+                # if the floor alone blocked a real shrink, decay it: each
+                # grow -> blocked-shrink cycle halves the gap, so an
+                # orbiting camera converges instead of oscillating
+                if (self._blend_floor and len(raw) == len(cur)
+                        and any(2 * b < c for b, c in zip(raw, cur))):
+                    self._blend_floor = tuple(f // 2
+                                              for f in self._blend_floor)
+                    self._polls_since_blend_retune = 0
+                return
+        if new != cur:
+            _log.info("blend shade budgets <- observed coverage: %s -> %s "
+                      "(of %d tiles)", cur or "(shared)", new, n_tiles)
+            self.config = self.config.replace(blend_layer_tile_budgets=new)
+            self._save_tuned_now()
+        self._polls_since_blend_retune = 0
+
+    def _observe_penumbra(self, count: int) -> None:
+        self._pen_obs.append(count)
+        if len(self._pen_obs) > max(64, self.blend_shrink_after):
+            self._pen_obs.pop(0)
+        self._polls_since_pen_retune += 1
+
+    def _maybe_retune_penumbra(self) -> None:
+        """Tighten the two-stage-PCF window budget to ~1.5x the OBSERVED
+        penumbra tile count (the blend budgets' policy: one
+        first-observation tune, then shrink only after a streak)."""
+        if not self._pen_obs or not self._react_overflow \
+                or not self.config.penumbra_tile_budget:
+            return
+        total = self._shade_tile_total()
+        cur = self.config.penumbra_tile_budget
+
+        def target(c: int) -> int:
+            return max(min(total, max(64, c + c // 2)), self._pen_floor)
+
+        if not self._pen_tuned:
+            new = target(self._pen_obs[-1])
+            if new >= cur:       # only ever tightens at first observation
+                self._pen_tuned = True
+                return
+        else:
+            window = self._pen_obs[-self.blend_shrink_after:]
+            due = (len(window) >= self.blend_shrink_after
+                   and self._polls_since_pen_retune >= self.blend_shrink_after)
+            if not due:
+                return
+            new = target(max(window))
+            if not 2 * new < cur:          # real gap only
+                # the blend budgets' floor decay (see above)
+                raw = min(total, max(64, max(window) * 3 // 2))
+                if self._pen_floor and 2 * raw < cur:
+                    self._pen_floor //= 2
+                    self._polls_since_pen_retune = 0
+                return
+        _log.info("penumbra tile budget <- observed: %d -> %d (of %d tiles)",
+                  cur, new, total)
+        self.config = self.config.replace(penumbra_tile_budget=new)
+        self._save_tuned_now()
+        self._pen_tuned = True
+        self._polls_since_pen_retune = 0
 
     def render(self, view_props: ViewProperties | None = None):
         """Render one frame: returns (image [H,W,4] uint8 on the device,
         stats dict of 0-d tensors, see ``render_frame``). Work is queued
         on the device; ``.cpu()`` fetches the image. The first frame, and
         the first after ``mark_shadows_dirty()``, also renders the shadow
-        maps. With ``auto_tune_pairs`` the call first reads the previous
-        frame's overflow counters (a blocking device read) and grows the
-        budgets that overflowed."""
-        if self._react_overflow and self._last_stats is not None:
-            self._grow_budgets(self._last_stats)
+        maps. With ``auto_tune_pairs`` the call first polls the counters
+        of earlier frames that have finished (``_poll_overflow``, no host
+        wait), and queues this frame's."""
+        if self._react_overflow:
+            self._poll_overflow()
         u = torch.from_numpy(self.uniform_for_camera(view_props)).to(
             self.device)
         sd = self.scene_dev
@@ -1139,7 +1474,8 @@ class FrameRenderer:
             self.n_shadows, self.backend, self._has_translucent,
             self._slots_used, shadow_lights=self._shadow_lights,
             has_mask=self._has_mask, alpha_is_factor=self._alpha_is_factor)
-        self._last_stats = stats
+        if self._react_overflow:
+            self._queue_stats(stats)
         return img, stats
 
 

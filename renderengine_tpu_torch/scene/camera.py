@@ -42,6 +42,21 @@ class Camera:
         r = math3d.normalize(np.cross(np.asarray(self.up, np.float32), d))
         self.up = np.cross(d, r).astype(np.float32)
 
+    def set_camera_view(self, eye, look_at, up) -> None:
+        self.eye = np.asarray(eye, np.float32)
+        self.look_at = np.asarray(look_at, np.float32)
+        self.up = np.asarray(up, np.float32)
+        self._orthonormalize()
+
+    def set_image_extent(self, width: int, height: int) -> None:
+        self.width, self.height = int(width), int(height)
+
+    def move(self, direction, speed: float) -> None:
+        d = np.asarray(direction, np.float32) * np.float32(speed)
+        self.eye = self.eye + d
+        self.look_at = self.look_at + d
+        self._orthonormalize()
+
     @property
     def view(self) -> np.ndarray:
         return math3d.look_at(self.eye, self.look_at, self.up)

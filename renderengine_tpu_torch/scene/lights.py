@@ -68,3 +68,13 @@ class LightSystem:
         }
 
 
+def normalize_assimp_light_intensity(color: np.ndarray) -> tuple[np.ndarray, float]:
+    """The reference's loader normalization (``AssimpSceneLoader.cpp:109-117``):
+    intensity = max channel; color normalized by it when > 1; then scaled by
+    10/683 (lux -> shading units)."""
+    color = np.asarray(color, np.float32)
+    intensity = float(color.max(initial=0.0))
+    if intensity > 1.0:
+        color = color / intensity
+    intensity = 10.0 * intensity / 683.0
+    return color.astype(np.float32), intensity

@@ -85,6 +85,11 @@ class MaterialSystem:
         self.instances.append(info)
         return make_material_handle(len(self.instances) - 1)
 
+    def is_translucent(self, handle: int) -> bool:
+        """Reference ``MaterialSystem.h:118``: blend-mode materials are
+        translucent and draw back-to-front."""
+        return self.instances[material_handle_index(handle)].alpha_mode == AlphaMode.BLEND
+
     def __len__(self) -> int:
         return len(self.instances)
 
@@ -110,3 +115,6 @@ class MaterialSystem:
         }
 
 
+def ior_to_f0(ior: float) -> float:
+    """Reference loader: f0 = ((ior-1)/(ior+1))^2 (``AssimpSceneLoader.cpp:293-297``)."""
+    return float(((ior - 1.0) / (ior + 1.0)) ** 2)

@@ -63,6 +63,14 @@ class MeshAllocator:
         self.meshes.append(mesh)
         return mesh
 
+    @property
+    def vertex_count(self) -> int:
+        return self._vertex_count
+
+    @property
+    def triangle_count(self) -> int:
+        return self._index_count // 3
+
     def build_arrays(self):
         """Consolidate to flat SoA numpy arrays:
 

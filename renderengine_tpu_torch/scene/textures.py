@@ -19,6 +19,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..core.asset_path import AssetPath
+from ..utils.image import read_image
 from ..core.hashing import fnv_hash_str
 
 
@@ -67,6 +69,14 @@ def to_rgba(img: np.ndarray) -> np.ndarray:
         out[..., :3] = img[..., :3]
     out[..., 3] = amax
     return out
+
+
+def to_rgba8(img: np.ndarray) -> np.ndarray:
+    """Any layout -> [H,W,4] uint8 (16-bit content scaled down)."""
+    rgba = to_rgba(np.asarray(img))
+    if rgba.dtype == np.uint16:
+        rgba = (rgba >> 8).astype(np.uint8)
+    return rgba
 
 
 def generate_mips(img: np.ndarray) -> list[np.ndarray]:
@@ -127,6 +137,38 @@ class TextureCache:
             self._by_key[fnv_hash_str(key)] = handle
         return handle
 
+    def load_texture(self, path: AssetPath | str, mips: bool = True) -> int:
+        """Load an image file (PNG / baseline JPEG / .npy). Returns the
+        handle, deduped by path (``TextureCache.cpp:50-106``)."""
+        p = AssetPath(str(path)) if not isinstance(path, AssetPath) else path
+        disk = p.get_path_on_disk()
+        key = str(p)
+        k = fnv_hash_str(key)
+        if k in self._by_key:
+            return self._by_key[k]
+        img = read_image(str(disk))
+        return self.add_texture(img, key=key, mips=mips)
+
+    def load_cubemap_faces(self, face_paths: list) -> None:
+        """6 files -> [6,S,S,4]; black faces on error
+        (``TextureCache.cpp:199-291``). Face order: +x,-x,+y,-y,+z,-z."""
+        faces = []
+        size = None
+        for fp in face_paths:
+            try:
+                p = AssetPath(str(fp)) if not isinstance(fp, AssetPath) else fp
+                img = to_rgba8(read_image(str(p.get_path_on_disk())))
+                if size is None:
+                    size = img.shape[0]
+                img = resize_bilinear(img, size, size)
+            except Exception:
+                img = None
+            faces.append(img)
+        if size is None:
+            size = 4
+        faces = [f if f is not None else np.zeros((size, size, 4), np.uint8) for f in faces]
+        self.cubemap = np.stack(faces)
+
     def set_cubemap(self, faces: np.ndarray) -> None:
         """Directly install a [6,S,S,4] uint8 cubemap."""
         f = np.asarray(faces, np.uint8)
@@ -135,6 +177,15 @@ class TextureCache:
 
     def __len__(self) -> int:
         return len(self._textures)
+
+    def set_environment(self, cube_f32: np.ndarray) -> None:
+        """Install the captured HDR environment cube (``ibl.
+        render_environment_map`` output) as the lighting environment —
+        the irradiance term (``RenderConfig.ibl_diffuse``) convolves it
+        at upload. Without one, the display skybox is used."""
+        f = np.asarray(cube_f32, np.float32)
+        assert f.ndim == 4 and f.shape[0] == 6 and f.shape[1] == f.shape[2]
+        self.env_cube = f
 
     def build_atlas(self) -> dict:
         """Pack all textures. Returns the device dict:

@@ -14,7 +14,8 @@ maps), then runs ``torch.profiler`` over ``--frames`` frames and prints
 one JSON line: per layer span (``frame.tss_spec``, ``frame.setup``,
 ``frame.bin_pack``, ``frame.raster`` or ``frame.merged_raster``,
 ``frame.shade``, ``frame.mask``, ``frame.sky``, ``frame.peel_raster``,
-``frame.peel_shade``, ``frame.encode``, named in ``graph/frame.py``) the
+``frame.peel_shade``, ``frame.overlay``, ``frame.encode``, named in
+``graph/frame.py``) the
 device ms per frame; the kernels with the most device time; the wall ms
 per frame, the kernel launches per frame and the device busy share (union
 of kernel intervals over the window). It then marks the shadow maps dirty
@@ -40,7 +41,7 @@ import torch
 SPANS = ("frame.shadow", "frame.tss_bake", "frame.tss_spec", "frame.setup",
          "frame.bin_pack", "frame.raster", "frame.merged_raster",
          "frame.shade", "frame.mask", "frame.sky", "frame.peel_raster",
-         "frame.peel_shade", "frame.encode")
+         "frame.peel_shade", "frame.overlay", "frame.encode")
 
 
 def _card() -> str:

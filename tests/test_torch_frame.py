@@ -95,18 +95,26 @@ def test_backends_agree_on_sponza_view():
     ("grid", True), ("texture_space", True), ("show_shadow_quad", True),
     ("tss_preshaded", True), ("tss_preshaded_blend", True)])
 def test_unported_features_raise(field, value):
-    """The grid and the shadow quad are not ported yet. Texture-space
-    shading is, and refuses what the JAX package asserts against: the
-    default ``debug_views=True``, and the pre-shaded switches without
+    """Every feature of the JAX package's frame is ported now: the grid and
+    the shadow quad render, and change the frame (they are held against
+    the JAX frame in tests/test_torch_overlays.py). Texture-space shading
+    refuses what the JAX package asserts against: the default
+    ``debug_views=True``, and the pre-shaded switches without
     ``texture_space``."""
     cfg = RenderConfig(width=32, height=24).replace(**{field: value})
-    err, match = {"grid": (NotImplementedError, "not ported yet"),
-                  "show_shadow_quad": (NotImplementedError, "not ported yet"),
-                  "texture_space": (ValueError, "debug_views=False")}.get(
+    sc = procedural.cube_scene(width=32, height=24)
+    if field in ("grid", "show_shadow_quad"):
+        small = dict(shadow_extent=64, translucency=False)
+        img, st = FrameRenderer(sc, cfg.replace(**small), device="cpu").render()
+        plain, _ = FrameRenderer(sc, cfg.replace(**small, **{field: False}),
+                                 device="cpu").render()
+        assert img.shape == (24, 32, 4) and (img != plain).any()
+        assert not any(int(v) for k, v in st.items() if "overflow" in k)
+        return
+    err, match = {"texture_space": (ValueError, "debug_views=False")}.get(
         field, (ValueError, "requires texture_space=True"))
     with pytest.raises(err, match=match):
-        FrameRenderer(procedural.cube_scene(width=32, height=24), cfg,
-                      device="cpu")
+        FrameRenderer(sc, cfg, device="cpu")
 
 
 def test_default_config_renders():

@@ -15,18 +15,27 @@ division and select the same fragments (the kernels split a dense tile's
 walk into work items and merge them exactly; the stress-scene cases hold
 that, ties included)."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
-from renderengine_tpu_torch.core.config import CullMode
+from renderengine_tpu_torch.core.config import CullMode, RenderConfig
+from renderengine_tpu_torch.graph import frame as fr
 from renderengine_tpu_torch.graph.frame import FrameRenderer
+from renderengine_tpu_torch.graph.render_loop import RenderLoop
+from renderengine_tpu_torch.scene import procedural
 from renderengine_tpu_torch.raster import cuda_raster as cr
 from renderengine_tpu_torch.raster.setup import restrict_rows, triangle_setup
 from renderengine_tpu_torch.tools import goldens
 from renderengine_tpu_torch.tools import split_stress as ss
 
 torch.set_num_threads(2)
+
+# the renderers here estimate their budgets: never adopt a record an
+# earlier process left (this file runs without tests/conftest.py too)
+os.environ["RENDERENGINE_TUNED_CACHE"] = "0"
 
 CASES = [(64, 48, CullMode.NONE, 16), (53, 37, CullMode.BACK, 12),
          (97, 61, CullMode.NONE, 60)]
@@ -377,3 +386,91 @@ def test_launches_on_two_streams(cuda_device):
     torch.cuda.synchronize()
     for out in outs:
         assert torch.equal(out, want)
+
+
+def _small_sponza():
+    return procedural.sponza_scene(width=256, height=128, n_textures=8,
+                                   target_tris=20_000)
+
+
+@pytest.mark.gpu
+def test_render_loop_presents_the_sequential_frames(cuda_device):
+    """RenderLoop with two frames in flight (pinned copies, one event a
+    frame) on an orbiting camera presents, byte for byte, the frames that
+    ``render()`` + ``.cpu()`` give one at a time with the config each
+    loop frame used (the controller may re-tune between frames)."""
+    sc = _small_sponza()
+    cfg = RenderConfig(width=256, height=128, shadow_extent=512)
+    eye0 = np.asarray(sc.camera.eye, np.float32)
+    target = np.asarray(sc.camera.look_at, np.float32)
+    eyes = []
+    for a in np.linspace(0.0, 0.3, 6):
+        c, s_ = np.cos(a), np.sin(a)
+        d = eye0 - target
+        eyes.append(target + np.array([c * d[0] - s_ * d[2], d[1],
+                                       s_ * d[0] + c * d[2]], np.float32))
+    presented, configs = [], []
+    loop = RenderLoop(sc, cfg, on_present=presented.append, target_fps=0.0)
+    for eye in eyes:
+        sc.camera.set_camera_view(eye, target, np.array([0, 1, 0]))
+        loop.render_one()
+        configs.append(loop.renderer.config)
+        assert len(loop._inflight) <= 2
+    loop.drain()
+    seq = FrameRenderer(sc, cfg)
+    seq._react_overflow = False
+    assert len(presented) == len(eyes)
+    for eye, c, got in zip(eyes, configs, presented):
+        sc.camera.set_camera_view(eye, target, np.array([0, 1, 0]))
+        seq.config = c
+        want = seq.render()[0].cpu().numpy()
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_poll_makes_no_host_sync(cuda_device):
+    """On warm frames ``_poll_overflow`` and the queueing of a frame's
+    counters run under ``set_sync_debug_mode("error")``: the pinned copies
+    and the event never make the host wait, whether the frame is done or
+    still in flight."""
+    r = FrameRenderer(_small_sponza(), RenderConfig(width=256, height=128,
+                                                    shadow_extent=512))
+    for _ in range(3):
+        r.render()
+        torch.cuda.synchronize()
+    img, st = r.render()
+    queued = len(r._pending_overflow)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        r._poll_overflow()                  # the frame may be in flight
+        r._queue_stats(st)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        r._poll_overflow()                  # every frame done: all read
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert queued >= 1 and not r._pending_overflow
+    assert not any(int(v) for k, v in st.items() if "overflow" in k)
+
+
+@pytest.mark.gpu
+def test_shadow_launch_2048_matches_plain(cuda_device):
+    """The apps' default shadow map (2048^2, depth only) through K1 equals
+    its plain version bit for bit."""
+    r = FrameRenderer(_small_sponza(), RenderConfig(width=256, height=128,
+                                                    shadow_extent=2048))
+    u = torch.from_numpy(r.uniform_for_camera()).to(cuda_device)
+    svp = fr.unpack_params(u, r.n_shadows)["shadow_viewproj"]
+    for si in range(r.n_shadows):
+        s = fr.shadow_setup(r.scene_dev, svp[si], 2048)
+        prep = cr.prepare_pairs(s, 2048, 2048, max_pairs=r._shadow_budget_val)
+        assert int(prep.bins.n_overflow) == 0
+        b = prep.bins
+        args = (prep.pair_data, b.starts, b.counts, 2048 // cr.TILE_W, 2048,
+                2048, 0, 0)
+        assert torch.equal(cr.raster_tiles(*args),
+                           cr._raster_tiles_plain(*args))
+

@@ -29,12 +29,21 @@ print(",".join(bad))
 print(",".join(names))
 """
 
-# the modules of the second slice (shadows, sky, translucency) and the
-# third (texture-space shading)
+# the modules of the second slice (shadows, sky, translucency), the
+# third (texture-space shading) and the fifth (the apps and the runtime
+# under them)
 SLICE_MODULES = ("shading.shadow", "shading.fitting", "shading.skybox",
                  "shading.sampling", "graph.frame", "raster.cuda_raster",
                  "tools.goldens", "tools.profile_frame", "shading.lightchart",
-                 "scene.scene")
+                 "scene.scene",
+                 "core.args", "core.asset_path", "core.engine",
+                 "graph.render_loop", "utils.log", "utils.profiling",
+                 "utils.hud", "utils.image", "utils.exr", "native",
+                 "scene.input", "scene.camera_controller", "scene.loader",
+                 "scene.loader_obj", "scene.loader_gltf", "scene.loader_dae",
+                 "scene.loader_fbx", "shading.grid", "shading.textured_quad",
+                 "shading.ibl", "apps.main_sample", "apps.live_viewer",
+                 "apps.project", "apps.editor")
 
 
 def test_port_modules_import_no_jax():
@@ -43,7 +52,7 @@ def test_port_modules_import_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_mods, bad, names = out.stdout.rstrip("\n").split("\n")
-    assert int(n_mods) >= 20, "module walk found too few port modules"
+    assert int(n_mods) >= 50, "module walk found too few port modules"
     assert bad == "", f"port pulled in {bad}"
     for m in SLICE_MODULES:
         assert f"renderengine_tpu_torch.{m}" in names.split(","), m
