@@ -1,0 +1,216 @@
+#!/usr/bin/env python
+"""Benchmark of the PyTorch port (``renderengine_tpu_torch``): the
+procedural Sponza at 1920x1080 on one card.
+
+    python3 bench_torch.py [--quick] [--frames N] [--width W --height H]
+                           [--per-pixel | --texture-space] [--goldens]
+                           [--device DEV]
+
+Prints ONE JSON line on stdout (progress goes to stderr):
+
+  {"metric": "frame_ms_1080p_sponza", "value": <warm median ms of the
+   first mode>, "unit": "ms", "modes": {"per_pixel": {...},
+   "tss_headline": {...}}, "golden_gate": {...}, "card": ..., ...}
+
+The golden gate rides every record: the seven golden configs rendered
+through ``FrameRenderer`` on the device, against ``tests/goldens_torch/``
+(or the JAX package's ``tests/goldens/`` for ``cube_phong``), at the
+golden bar (within 1/255 on >= 99.9% of pixels, max 4/255), with every
+overflow counter 0. A red gate exits 1 after the record is printed.
+
+Modes: ``per_pixel`` is the default ``RenderConfig`` (4096^2 shadow maps,
+3x3 PCF, skybox, two peeled translucent layers, PBR with 16x tiered
+anisotropic sampling); ``tss_headline`` the texture-space headline
+(``texture_space``, ``tss_preshaded_blend``, ``dither_trilinear``,
+``sky_halfres``). Each mode's renderer draws one frame (the shadow pass
+and, with texture-space shading, the visibility bake), then ``--frames``
+warm frames, each timed on the host clock around ``render()`` and a
+synchronize; ``value`` is the median of the warm frames. The budgets are
+the renderer's own (estimated at init, grown and re-tuned by its poll).
+``vs_baseline`` is fps / 60, the reference's design target
+(BASELINE.md), recorded as measured: it is not compared with the JAX
+package's TPU records. ``--quick`` cuts the scene (5000 triangles, 16
+textures, 256^2 shadow maps) and the frame to 320x240 unless
+``--width``/``--height`` say otherwise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+
+def card_line(device) -> str | None:
+    """The card's name and power limit as nvidia-smi reports them."""
+    if device.type != "cuda":
+        return None
+    idx = device.index or 0
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "-i", str(idx),
+             "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
+        return out.stdout.strip() or None
+    except (OSError, subprocess.SubprocessError):
+        return None
+
+
+def sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def golden_gate_record(device) -> dict:
+    """The seven golden configs through ``FrameRenderer`` on ``device``
+    against their goldens, at the golden bar, every counter 0."""
+    from renderengine_tpu_torch.graph.frame import FrameRenderer
+    from renderengine_tpu_torch.tools import goldens
+
+    worst = {"name": None, "frac": 1.0, "max": 0}
+    failed = []
+    sets = set()
+    for name, factory, cfg in goldens.golden_cases():
+        r = FrameRenderer(factory(), cfg, device=device, backend="cuda")
+        img, st = r.render()
+        frac, mx = goldens.golden_bar(img.cpu().numpy(),
+                                      goldens.load_golden(name))
+        over = sum(int(v) for k, v in st.items() if "overflow" in k) \
+            + r.shadow_overflow
+        sets.add(goldens.golden_path(name).parent.name)
+        print(f"# golden {name}: {frac:.6f} within 1/255, max {mx}, "
+              f"overflow {over}", file=sys.stderr)
+        if frac < worst["frac"] or mx > worst["max"]:
+            worst = {"name": name, "frac": min(frac, worst["frac"]),
+                     "max": max(mx, worst["max"])}
+        if not goldens.meets_bar(frac, mx) or over:
+            failed.append({"name": name, "frac_within_1": frac,
+                           "max_diff": mx, "overflow": over})
+    rec = {"pass": not failed, "backend": "cuda",
+           "golden_sets": sorted(sets),
+           "worst_frac_within_1": worst["frac"],
+           "worst_max_diff": worst["max"]}
+    if failed:
+        rec["failed"] = failed
+    return rec
+
+
+def measure(scene, cfg, frames: int, device, tag: str) -> dict:
+    """One renderer: the first frame, then ``frames`` warm frames, each
+    timed around ``render()`` + synchronize."""
+    from renderengine_tpu_torch.graph.frame import FrameRenderer
+
+    t0 = time.perf_counter()
+    r = FrameRenderer(scene, cfg, device=device)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r.render()
+    sync(device)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    ms, st = [], None
+    for _ in range(frames):
+        t0 = time.perf_counter()
+        img, st = r.render()
+        sync(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(ms)
+    over = {k: int(v) for k, v in st.items() if "overflow" in k}
+    print(f"# [{tag}] {cfg.width}x{cfg.height}: init {init_s:.2f} s, "
+          f"first frame {first_ms:.1f} ms, warm median {med:.2f} ms over "
+          f"{frames}, counters {over}", file=sys.stderr)
+    return {"frame_ms_median": med, "frame_ms": ms, "fps": 1e3 / med,
+            "first_frame_ms": first_ms, "init_s": init_s,
+            "last_frame_counters": over,
+            "frame_shape": list(img.shape)}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--quick", action="store_true",
+                    help="small scene and frame (a sanity run, not the "
+                    "headline number)")
+    ap.add_argument("--frames", type=int, default=10,
+                    help="warm frames timed per mode")
+    ap.add_argument("--width", type=int, default=None)
+    ap.add_argument("--height", type=int, default=None)
+    ap.add_argument("--per-pixel", action="store_true",
+                    help="only the default per-pixel configuration")
+    ap.add_argument("--texture-space", action="store_true",
+                    help="only the texture-space headline configuration")
+    ap.add_argument("--goldens", action="store_true",
+                    help="only the golden gate")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda, which must exist)")
+    args = ap.parse_args(argv)
+
+    # the renderers estimate their budgets: never adopt a record an
+    # earlier process left in the tuned-config cache
+    os.environ["RENDERENGINE_TUNED_CACHE"] = "0"
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+
+    from renderengine_tpu_torch.core.config import RenderConfig
+    from renderengine_tpu_torch.device import resolve_device
+    from renderengine_tpu_torch.scene import procedural
+
+    device = resolve_device(args.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rec = {"metric": "golden_gate" if args.goldens
+           else "frame_ms_1080p_sponza" if not args.quick
+           else "frame_ms_quick", "unit": "pass" if args.goldens else "ms",
+           "device": str(device), "card": card_line(device),
+           "torch": torch.__version__, "cuda": torch.version.cuda}
+    gate = golden_gate_record(device)
+    rec["golden_gate"] = gate
+    if args.goldens:
+        rec["value"] = 1.0 if gate["pass"] else 0.0
+        print(json.dumps(rec), flush=True)
+        return 0 if gate["pass"] else 1
+
+    if args.quick:
+        w, h = args.width or 320, args.height or 240
+        scene_kw = dict(n_textures=16, target_tris=5000)
+        extent = 256
+    else:
+        w, h = args.width or 1920, args.height or 1080
+        scene_kw = {}
+        extent = RenderConfig().shadow_extent
+    t0 = time.perf_counter()
+    scene = procedural.sponza_scene(width=w, height=h, **scene_kw)
+    rec["scene_s"] = time.perf_counter() - t0
+    modes = {
+        "per_pixel": RenderConfig(width=w, height=h, shadow_extent=extent),
+        "tss_headline": RenderConfig(
+            width=w, height=h, shadow_extent=extent, debug_views=False,
+            texture_space=True, tss_preshaded_blend=True,
+            dither_trilinear=True, sky_halfres=True),
+    }
+    if args.per_pixel:
+        modes.pop("tss_headline")
+    elif args.texture_space:
+        modes.pop("per_pixel")
+    rec["modes"] = {}
+    for tag, cfg in modes.items():
+        rec["modes"][tag] = measure(scene, cfg, args.frames, device, tag)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    first = next(iter(rec["modes"].values()))
+    rec["value"] = first["frame_ms_median"]
+    rec["value_mode"] = next(iter(rec["modes"]))
+    rec["vs_baseline"] = first["fps"] / 60.0
+    rec["baseline"] = ("fps / 60, the reference's design target "
+                       "(BASELINE.md); recorded as measured, not a target")
+    rec["width"], rec["height"] = w, h
+    print(json.dumps(rec), flush=True)
+    return 0 if gate["pass"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

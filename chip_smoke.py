@@ -50,7 +50,25 @@ Sponza (260k triangles, 200 textures of 512^2), checking their output:
   re-tunes, the synchronizing calls of a warm ``render()``, init with
   and without the tuned-config record (in a directory of its own), the
   app's 2048^2 shadow launch against its plain version, and the wall ms
-  a frame of ``RenderLoop`` against ``render()`` + ``.cpu()``.
+  a frame of ``RenderLoop`` against ``render()`` + ``.cpu()``;
+- the sharded path (phase sharded, ``parallel.sharded.ShardedRenderer``
+  through ``tools.sharded_run``): 2 rank processes on the one card over
+  gloo (NCCL puts no two ranks on one device; the gathers go through
+  host memory), each rendering its 540-row band of the 1080p frame (from
+  the whole 8-row tile it starts in: 544 rows, rank 1's from row 536), 3
+  frames of the default per-pixel config and 3 of the texture-space
+  headline, with the budgets the single-card renderers settled on; each
+  gathered frame must equal the single-card frame and the sharded shadow
+  maps (each rank rasters half the triangles, merged by
+  ``all_reduce(MIN)``) the single-card ones, byte for byte, every
+  counter 0; then 2 headline frames at a world of 1 over NCCL through
+  the same code. Phases k1-band and k2-band first hold K1 (the opaque
+  pass at 8 attributes, the dual peel) and K2 at a launch from the
+  mid-tile row y0 = 540 and at rank 1's launch shapes (y0 = 536, 544
+  rows) to their plain versions and time the latter; their rows'
+  ``launches`` are rank 1's in that run. The
+  frame times of two ranks sharing one card are a record, not a scaling
+  claim.
 Each phase is fatal: any failure exits non-zero without the final line.
 Before the last line it prints the card's name and power limit (as
 ``nvidia-smi`` reports them), one JSON line of per-kernel numbers and one
@@ -209,20 +227,34 @@ def time_shape(label, fn, solo_fn, reps=30):
     return r
 
 
+def ref_frame_ms(fn, reps: int = 3) -> list:
+    """Host ms of ``reps`` warm frames, each call followed by a
+    synchronize: the single-card frame the sharded phase is compared
+    with, at the same budgets (no poll in between)."""
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     d = (a.double() - b.double()).abs()
     return float(d.max()) if d.numel() else 0.0
 
 
 def k1_plain_check(cr, prep, ntx, width, height, label, bounds=None,
-                   tile_map=None, dual=False):
+                   tile_map=None, dual=False, y0=0):
     """K1 against its plain version on the card over one pair table:
     depth, tri and material planes of every layer bit-exact; attribute
     planes within 1e-6 (absolute, on values of at most a few hundred).
+    ``height`` is the full frame's, ``y0`` a band's first row.
     Returns (max abs error, the plain run's stats: (pair, pixel) fragments
     that entered a layer and layer-1 demotions, the plain run's ms)."""
     b = prep.bins
-    args = (prep.pair_data, b.starts, b.counts, ntx, width, height, 0,
+    args = (prep.pair_data, b.starts, b.counts, ntx, width, height, y0,
             prep.n_attrs, bounds, tile_map, dual)
     kern = cr.raster_tiles(*args)
     stats = {}
@@ -243,13 +275,13 @@ def k1_plain_check(cr, prep, ntx, width, height, label, bounds=None,
     return err, stats, t0.elapsed_time(t1)
 
 
-def k2_check(cr, pa, pb, ntx, width, height, nab, label):
+def k2_check(cr, pa, pb, ntx, width, height, nab, label, y0=0):
     """K2 against its plain version on the card, and against K1's opaque
     launch followed by K1's dual launch with peel bounds (-1, opaque
     depth) over the same tables: all bit-exact. Returns (max abs error,
     the plain run's stats, the plain run's ms)."""
     tabs = (pa.pair_data, pa.bins.starts, pa.bins.counts, pb.pair_data,
-            pb.bins.starts, pb.bins.counts, ntx, width, height, 0, nab)
+            pb.bins.starts, pb.bins.counts, ntx, width, height, y0, nab)
     kern = cr.merged_tiles(*tabs)
     stats = {}
     t0 = torch.cuda.Event(enable_timing=True)
@@ -261,11 +293,11 @@ def k2_check(cr, pa, pb, ntx, width, height, nab, label):
     # the separate launches: opaque, then the bounded dual peel (bounds in
     # tile order, so partial tiles' outside pixels see the same cap)
     opq = cr.raster_tiles(pa.pair_data, pa.bins.starts, pa.bins.counts,
-                          ntx, width, height, 0, 4)
+                          ntx, width, height, y0, 4)
     bounds = torch.stack([torch.full_like(opq[:, 0], -1.0), opq[:, 0]],
                          1).contiguous()
     dual = cr.raster_tiles(pb.pair_data, pb.bins.starts, pb.bins.counts,
-                           ntx, width, height, 0, 4, bounds, None, True)
+                           ntx, width, height, y0, 4, bounds, None, True)
     pl = 3 + nab
     sep = torch.cat([opq, dual[:, :pl], dual[:, 7:7 + pl]], 1)
     err = max(max_abs_err(kern, plain), max_abs_err(kern, sep))
@@ -361,7 +393,8 @@ def main() -> None:
         from renderengine_tpu_torch.graph import frame as fr
         from renderengine_tpu_torch.raster import binning
         from renderengine_tpu_torch.raster import cuda_raster as cr
-        from renderengine_tpu_torch.raster.setup import triangle_setup
+        from renderengine_tpu_torch.raster.setup import (restrict_rows,
+                                                         triangle_setup)
         from renderengine_tpu_torch.scene import procedural
         from renderengine_tpu_torch.tools import goldens
         from renderengine_tpu_torch.shading import lightchart
@@ -914,6 +947,124 @@ def main() -> None:
     except Exception as e:  # noqa: BLE001
         fail(phase, e)
 
+    # phase: K1 on the lower band of the 1080p frame: the opaque pass at 8
+    # attributes and the dual peel bounded by the band's opaque depth,
+    # each against its plain version, first from the mid-tile row 540
+    # (4 rows into an 8-row tile), then as the second of two ranks
+    # launches them (its band [540, 1080) renders from row 536, the tile
+    # row it starts in: sharded.band_extent), timed; then the single-card
+    # frame the sharded phase is held to, with the renderer's settled
+    # budgets (every counter 0)
+    phase = "k1-band"
+    try:
+        from renderengine_tpu_torch.parallel import sharded
+
+        ntx_b = -(-SPONZA_W // cr.TILE_W)
+        y0m = SPONZA_H // 2
+        prep_m = fr.opaque_pairs(sd, restrict_rows(fr.opaque_setup(
+            sd, params, rcfg), y0m, y0m, SPONZA_H), rcfg, y0m, y0m)
+        k1_plain_check(cr, prep_m, ntx_b, SPONZA_W, SPONZA_H,
+                       f"per-pixel opaque y0={y0m} (mid-tile)", y0=y0m)
+        depth_m = cr.raster_tiles(
+            prep_m.pair_data, prep_m.bins.starts, prep_m.bins.counts, ntx_b,
+            SPONZA_W, SPONZA_H, y0m, 8)[:, 0]
+        prep_mt = fr.blend_pairs(sd, restrict_rows(fr.blend_setup(
+            sd, params, rcfg), y0m, y0m, SPONZA_H), rcfg, y0m, y0m)
+        k1_plain_check(cr, prep_mt, ntx_b, SPONZA_W, SPONZA_H,
+                       f"per-pixel dual peel y0={y0m} (mid-tile)",
+                       torch.stack([torch.full_like(depth_m, -1.0), depth_m],
+                                   1).contiguous(), None, True, y0=y0m)
+        del prep_m, prep_mt, depth_m
+        y0b, ye_b = sharded.band_extent(rcfg, y0m, SPONZA_H - y0m)
+        hsb = ye_b - y0b
+        setup_ob = restrict_rows(fr.opaque_setup(sd, params, rcfg), y0b, hsb,
+                                 SPONZA_H)
+        prep_ob = fr.opaque_pairs(sd, setup_ob, rcfg, hsb, y0b)
+        bo = prep_ob.bins
+        err, st_ob, ob_plain_ms = k1_plain_check(
+            cr, prep_ob, ntx_b, SPONZA_W, SPONZA_H,
+            f"per-pixel opaque band y0={y0b}", y0=y0b)
+        max_err["band_opaque"] = err
+        ob_args = (prep_ob.pair_data, bo.starts, bo.counts, ntx_b, SPONZA_W,
+                   SPONZA_H, y0b, 8)
+        (ob_solo,) = solo_counts(bo.counts)
+        times["raster_tile_band"] = time_shape(
+            f"per-pixel opaque band y0={y0b}",
+            lambda: cr.raster_tiles(*ob_args),
+            lambda: cr.raster_tiles(*ob_args[:2], ob_solo, *ob_args[3:]))
+        ob_pairs = int(bo.counts.sum())
+        ob_tiles = int(bo.counts.shape[0])
+        ob_bound = k1_bound(ob_pairs, ob_tiles, prep_ob.pair_data.shape[1], 8,
+                            st_ob["wins"])
+        band_depth = cr.raster_tiles(*ob_args)[:, 0]
+        setup_pb = restrict_rows(fr.blend_setup(sd, params, rcfg), y0b, hsb,
+                                 SPONZA_H)
+        prep_pb = fr.blend_pairs(sd, setup_pb, rcfg, hsb, y0b)
+        bpb = prep_pb.bins
+        pb_bounds = torch.stack([torch.full_like(band_depth, -1.0),
+                                 band_depth], 1).contiguous()
+        # the grid the frame gives this launch: sparse when the renderer's
+        # tile budget is below the band's tile count
+        pb_map = (cr.sparse_tile_map(bpb.counts, rcfg.blend_tile_budget)
+                  if rcfg.blend_tile_budget < ob_tiles else None)
+        pb_sel = ob_tiles if pb_map is None else int(pb_map.shape[0])
+        err, st_pb, pb_plain_ms = k1_plain_check(
+            cr, prep_pb, ntx_b, SPONZA_W, SPONZA_H,
+            f"per-pixel dual peel band y0={y0b}, {pb_sel} of {ob_tiles} "
+            f"tiles", pb_bounds, pb_map, True, y0=y0b)
+        max_err["band_peel2"] = err
+        pb_args = (prep_pb.pair_data, bpb.starts, bpb.counts, ntx_b,
+                   SPONZA_W, SPONZA_H, y0b, 8, pb_bounds, pb_map, True)
+        (pb_solo,) = solo_counts(bpb.counts)
+        times["raster_tile_peel2_band"] = time_shape(
+            f"per-pixel dual peel band y0={y0b}",
+            lambda: cr.raster_tiles(*pb_args),
+            lambda: cr.raster_tiles(*pb_args[:2], pb_solo, *pb_args[3:]))
+        pb_pairs = int(bpb.counts.sum() if pb_map is None
+                       else bpb.counts[pb_map.long()].sum())
+        pb_bound = k1_bound(pb_pairs, pb_sel, prep_pb.pair_data.shape[1], 8,
+                            st_pb["wins"], st_pb["demotes"], peel=True,
+                            dual=True, sparse=pb_map is not None)
+        band_rows = {
+            "raster_tile_band": {"pairs": ob_pairs, "plain_ms": ob_plain_ms,
+                                 "bound": ob_bound},
+            "raster_tile_peel2_band": {"pairs": pb_pairs,
+                                       "plain_ms": pb_plain_ms,
+                                       "bound": pb_bound}}
+        log(f"phase k1-band: opaque {ob_pairs} pairs over {ob_tiles} tiles, "
+            f"{times['raster_tile_band']['ms']:.4f} ms, bound "
+            f"{ob_bound[0]:.4f} ms ({ob_bound[1]}); dual peel {pb_pairs} "
+            f"pairs over {pb_sel} slots, "
+            f"{times['raster_tile_peel2_band']['ms']:.4f} ms, bound "
+            f"{pb_bound[0]:.4f} ms ({pb_bound[1]})")
+        del prep_ob, prep_pb, pb_bounds, band_depth
+        # the single-card reference of the sharded phase
+        pp_img, pp_st = fr.render_frame(
+            sd, u, renderer._shadow_maps, rcfg, n_maps, "cuda", True,
+            renderer._slots_used, shadow_lights=renderer._shadow_lights,
+            has_mask=renderer._has_mask)
+        pp_over = {k: int(v) for k, v in pp_st.items() if "overflow" in k}
+        if any(pp_over.values()) or renderer.shadow_overflow:
+            raise AssertionError(f"reference frame counters {pp_over}")
+        pp_ref = {"config": rcfg, "frame": pp_img.cpu(),
+                  "maps": tuple(t.cpu() for t in renderer._shadow_maps),
+                  "shadow_budget": renderer._shadow_budget_val,
+                  "frame_ms": ref_frame_ms(lambda: fr.render_frame(
+                      sd, u, renderer._shadow_maps, rcfg, n_maps, "cuda",
+                      True, renderer._slots_used,
+                      shadow_lights=renderer._shadow_lights,
+                      has_mask=renderer._has_mask))}
+        log(f"phase k1-band: single-card reference frame, budgets: pair "
+            f"{rcfg.raster.pair_budget} (dense_k {rcfg.raster.dense_k}), "
+            f"blend pair {rcfg.blend_pair_budget}, blend tile "
+            f"{rcfg.blend_tile_budget}, shade tiles "
+            f"{rcfg.blend_layer_tile_budgets}, penumbra "
+            f"{rcfg.penumbra_tile_budget}, shadow pair "
+            f"{renderer._shadow_budget_val}; counters {pp_over}")
+        del pp_img
+    except Exception as e:  # noqa: BLE001
+        fail(phase, e)
+
     # the texture-space path: the JAX package's headline configuration
     del renderer
     torch.cuda.empty_cache()
@@ -1054,6 +1205,57 @@ def main() -> None:
     except Exception as e:  # noqa: BLE001
         fail(phase, e)
 
+    # phase: K2 on the lower band of the 1080p headline frame, against its
+    # plain version and the separate K1 launches: from the mid-tile row
+    # 540, then as the second of two ranks launches it (rows 536-1079:
+    # sharded.band_extent), timed
+    phase = "k2-band"
+    try:
+        from renderengine_tpu_torch.parallel import sharded
+
+        y0m = SPONZA_H // 2
+        k2_check(cr, fr.opaque_pairs(
+            tsd, restrict_rows(setup_a, y0m, y0m, SPONZA_H), tcfg, y0m, y0m),
+            fr.blend_pairs(tsd, restrict_rows(fr.blend_setup(
+                tsd, tparams, tcfg), y0m, y0m, SPONZA_H), tcfg, y0m, y0m),
+            ntx, SPONZA_W, SPONZA_H, 2,
+            f"headline y0={y0m} (mid-tile), n_attrs_b=2", y0=y0m)
+        y0b, ye_b = sharded.band_extent(tcfg, y0m, SPONZA_H - y0m)
+        hsb = ye_b - y0b
+        sa_b = restrict_rows(setup_a, y0b, hsb, SPONZA_H)
+        pa_b = fr.opaque_pairs(tsd, sa_b, tcfg, hsb, y0b)
+        sb_b = restrict_rows(fr.blend_setup(tsd, tparams, tcfg), y0b, hsb,
+                             SPONZA_H)
+        pb_b = fr.blend_pairs(tsd, sb_b, tcfg, hsb, y0b)
+        err, st_kb, kb_plain_ms = k2_check(
+            cr, pa_b, pb_b, ntx, SPONZA_W, SPONZA_H, 2,
+            f"headline band y0={y0b}, n_attrs_b=2", y0=y0b)
+        max_err["band_k2"] = err
+        kb_args = (pa_b.pair_data, pa_b.bins.starts, pa_b.bins.counts,
+                   pb_b.pair_data, pb_b.bins.starts, pb_b.bins.counts, ntx,
+                   SPONZA_W, SPONZA_H, y0b, 2)
+        (kb_sa, kb_sb) = solo_counts(pa_b.bins.counts, pb_b.bins.counts)
+        kb_solo = kb_args[:2] + (kb_sa,) + kb_args[3:5] + (kb_sb,) \
+            + kb_args[6:]
+        times["merged_tile_band"] = time_shape(
+            f"K2 band y0={y0b}", lambda: cr.merged_tiles(*kb_args),
+            lambda: cr.merged_tiles(*kb_solo))
+        kb_pa = int(pa_b.bins.counts.sum())
+        kb_pb = int(pb_b.bins.counts.sum())
+        kb_tiles = int(pa_b.bins.counts.shape[0])
+        kb_bound = k2_bound(kb_pa, kb_pb, kb_tiles, 2, st_kb["wins"],
+                            st_kb["wins_b"], st_kb["demotes"])
+        band_rows["merged_tile_band"] = {"pairs": kb_pa + kb_pb,
+                                         "plain_ms": kb_plain_ms,
+                                         "bound": kb_bound}
+        log(f"phase k2-band: {kb_pa} + {kb_pb} pairs over {kb_tiles} tiles, "
+            f"K2 {times['merged_tile_band']['ms']:.4f} ms, plain "
+            f"{kb_plain_ms:.2f} ms, bound {kb_bound[0]:.4f} ms "
+            f"({kb_bound[1]})")
+        del pa_b, pb_b
+    except Exception as e:  # noqa: BLE001
+        fail(phase, e)
+
     # phase: the texture-space paths, each counted on its own: the headline
     # frame x TSS_FRAMES; then one frame each of factored shading (4
     # translucent layers: K2 + a K1 dual peel), fully pre-shaded shading and
@@ -1154,6 +1356,29 @@ def main() -> None:
         log(f"phase tss-path: through the plain versions identical: {same}")
         if not same:
             raise AssertionError("the kernel frame differs from the plain one")
+        # the single-card reference of the sharded phase: the headline
+        # frame with the renderer's budgets after its frames
+        t_img, t_st = fr.render_frame(
+            tsd, tu, tss_r._shadow_maps, tss_r.config, tss_r.n_shadows,
+            "cuda", True, tss_r._slots_used,
+            shadow_lights=tss_r._shadow_lights, has_mask=tss_r._has_mask,
+            alpha_is_factor=tss_r._alpha_is_factor)
+        t_over = {k: int(v) for k, v in t_st.items() if "overflow" in k}
+        log(f"phase tss-path: the sharded phase's reference frame: "
+            f"counters {t_over}, equal to the last headline frame "
+            f"{torch.equal(t_img, timg)}")
+        if any(t_over.values()):
+            raise AssertionError(f"TSS reference frame: counters {t_over}")
+        tss_ref = {"config": tss_r.config, "frame": t_img.cpu(),
+                   "maps": tuple(t.cpu() for t in tss_r._shadow_maps),
+                   "shadow_budget": tss_r._shadow_budget_val,
+                   "frame_ms": ref_frame_ms(lambda: fr.render_frame(
+                       tsd, tu, tss_r._shadow_maps, tss_r.config,
+                       tss_r.n_shadows, "cuda", True, tss_r._slots_used,
+                       shadow_lights=tss_r._shadow_lights,
+                       has_mask=tss_r._has_mask,
+                       alpha_is_factor=tss_r._alpha_is_factor))}
+        del t_img
         del tss_r, tsd, unm
         torch.cuda.empty_cache()
         modes = {}
@@ -1559,7 +1784,105 @@ def main() -> None:
     except Exception as e:  # noqa: BLE001
         fail(phase, e)
 
-    def row(name, launches, err, ms, plain, bound, by, k2=False):
+    # phase: the sharded renderer (parallel.sharded) on the one card: 2
+    # ranks over gloo (NCCL puts no two ranks on one device; the gathers go
+    # through host memory), spawned as processes, at 1920x1080 on the
+    # Sponza, the default per-pixel config and the TSS headline, with the
+    # single-card renderers' settled budgets; each gathered frame and the
+    # sharded shadow maps must equal the single-card ones byte for byte.
+    # Then a world of 1 over NCCL through the same code. Two processes
+    # share one card: the frame times are a record, not a scaling claim
+    phase = "sharded"
+    try:
+        import shutil
+        import tempfile
+
+        import torch.distributed as dist
+        from renderengine_tpu_torch.tools import sharded_run
+
+        t_sh = time.time()
+        sponza = ("sponza_scene", dict(width=SPONZA_W, height=SPONZA_H))
+        refs = {"per_pixel": pp_ref, "tss_headline": tss_ref}
+
+        def sh_run(ref, frames):
+            return {"scene": sponza, "config": ref["config"],
+                    "backend": "cuda", "shadow_budget": ref["shadow_budget"],
+                    "frames": frames, "keep_shadow_maps": True}
+
+        def check(out, name, world):
+            ref = refs[name]
+            recs = [rk["runs"][name] for rk in out["ranks"]]
+            frame = recs[0]["frame"]
+            diff = int((frame != ref["frame"]).any(-1).sum())
+            maps_eq = all(torch.equal(a, b) for a, b in
+                          zip(recs[0]["shadow_maps"], ref["maps"]))
+            over = [{k: v for k, v in r["stats"].items() if "overflow" in k}
+                    | {"shadow_overflow": r["shadow_overflow"]}
+                    for r in recs]
+            res = {"world": world, "transport": out["ranks"][0]["transport"],
+                   "frame_equal": diff == 0, "pixels_differ": diff,
+                   "shadow_maps_equal": maps_eq,
+                   "frame_ms": recs[0]["ms"],
+                   "frame_ms_warm_median": statistics.median(
+                       recs[0]["ms"][1:]),
+                   "single_card_frame_ms": ref["frame_ms"],
+                   "single_card_frame_ms_median": statistics.median(
+                       ref["frame_ms"]),
+                   "init_s": [r["init_s"] for r in recs],
+                   "launches": [r["launches"] for r in recs],
+                   "counters": over}
+            log(f"phase sharded [{name}, world {world}, "
+                f"{res['transport']}]: {res}")
+            if diff or not maps_eq or any(any(o.values()) for o in over):
+                raise AssertionError(f"{name}: the sharded frame differs "
+                                     f"from the single card's: {res}")
+            return res
+
+        sh_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_sharded_"))
+        sharded_res = {}
+        try:
+            out = sharded_run.launch(
+                {"dist_backend": "gloo", "world": 2,
+                 "devices": ["cuda:0", "cuda:0"], "threads": 2,
+                 "runs": {"per_pixel": sh_run(pp_ref, 3),
+                          "tss_headline": sh_run(tss_ref, 3)}},
+                sh_dir / "gloo", timeout_s=600)
+            log(f"phase sharded: 2 ranks in {time.time() - t_sh:.1f} s, scene "
+                f"build {[rk.get('scene_s') for rk in out['ranks']]} s")
+            for name in refs:
+                sharded_res[f"{name}_2"] = check(out, name, 2)
+            # the band launch shapes were timed at rank 1's (y0 = 536)
+            band_launches = {
+                "raster_tile_band": out["ranks"][1]["runs"]["per_pixel"][
+                    "launches"].get(str(opaque_v), 0),
+                "raster_tile_peel2_band": out["ranks"][1]["runs"][
+                    "per_pixel"]["launches"].get(str(peel_v), 0),
+                "merged_tile_band": out["ranks"][1]["runs"]["tss_headline"][
+                    "launches"].get(str(k2_v2), 0)}
+            if not all(band_launches.values()):
+                raise AssertionError(f"band launches {band_launches}")
+            del out
+            if not dist.is_nccl_available():
+                raise AssertionError("this torch has no NCCL")
+            t1 = time.time()
+            out = sharded_run.launch(
+                {"dist_backend": "nccl", "world": 1, "devices": ["cuda:0"],
+                 "threads": 2, "runs": {"tss_headline": sh_run(tss_ref, 2)}},
+                sh_dir / "nccl", timeout_s=300)
+            log(f"phase sharded: NCCL world 1 in {time.time() - t1:.1f} s")
+            sharded_res["tss_headline_nccl_1"] = check(out, "tss_headline", 1)
+            del out
+        finally:
+            shutil.rmtree(sh_dir, ignore_errors=True)
+        sharded_res["wall_s"] = time.time() - t_sh
+        sharded_res["band_launches_rank1"] = band_launches
+        log(f"phase sharded: {sharded_res['wall_s']:.1f} s; {card}; the "
+            f"frame times of two ranks on one card are a record, not a "
+            f"scaling claim")
+    except Exception as e:  # noqa: BLE001
+        fail(phase, e)
+
+    def row(name, launches, err, ms, plain, bound, by, k2=False, pairs=None):
         t = times[name]
         return {"name": name, "route": "cuda",
                 "source": SOURCE,
@@ -1569,29 +1892,40 @@ def main() -> None:
                 "library_ms": None,
                 "densest_tile_ms": t["densest_tile_ms"],
                 "launch_over_densest": t["launch_over_densest"],
-                "device_ms": t["device_ms"], "host_ms": t["host_ms"]}
+                "device_ms": t["device_ms"], "host_ms": t["host_ms"],
+                "pairs": pairs}
+
+    def band_row(name, err_key, k2=False):
+        b = band_rows[name]
+        return row(name, band_launches[name], max_err[err_key],
+                   times[name]["ms"], b["plain_ms"], b["bound"][0],
+                   b["bound"][1], k2=k2, pairs=b["pairs"])
 
     kernels = [
         row("raster_tile", launches[opaque_v], max_err["opaque"], k1_ms,
-            plain_ms, bound_ms, bound_by),
+            plain_ms, bound_ms, bound_by, pairs=pairs),
         row("raster_tile_shadow", launches[shadow_v], max_err["shadow"],
-            sh_ms, sh_plain_ms, sh_bound_ms, sh_bound_by),
+            sh_ms, sh_plain_ms, sh_bound_ms, sh_bound_by, pairs=sh_pairs),
         row("raster_tile_peel2", launches[peel_v], max_err["peel2"], pl_ms,
-            pl_plain_ms, pl_bound_ms, pl_bound_by),
+            pl_plain_ms, pl_bound_ms, pl_bound_by, pairs=pl_pairs),
         row("raster_tile_tss", path_launches["no_translucency"][k1_tss_v],
-            max_err["tss"], ta_ms, ta_plain_ms, ta_bound, ta_by),
+            max_err["tss"], ta_ms, ta_plain_ms, ta_bound, ta_by,
+            pairs=pairs_a),
         row("raster_tile_tss_peel2",
             path_launches["factored"][k1_tss_peel_v], max_err["tss_peel2"],
-            tp_ms, tp_plain_ms, tp_bound, tp_by),
+            tp_ms, tp_plain_ms, tp_bound, tp_by, pairs=pairs_b),
         row("merged_tile", path_launches["headline"][k2_v2], max_err["k2_2"],
             k2[2]["ms"], k2[2]["plain_ms"], k2[2]["bound_ms"],
-            k2[2]["bound_by"], k2=True),
+            k2[2]["bound_by"], k2=True, pairs=pairs_a + pairs_b),
         row("merged_tile_b4", path_launches["factored"][k2_v4],
             max_err["k2_4"],
             k2[4]["ms"], k2[4]["plain_ms"], k2[4]["bound_ms"],
-            k2[4]["bound_by"], k2=True),
+            k2[4]["bound_by"], k2=True, pairs=pairs_a + pairs_b),
         row("raster_tile_shadow_2048", app_shadow_launches, err2, sh2_ms,
-            sh2_plain_ms, sh2_bound_ms, sh2_bound_by),
+            sh2_plain_ms, sh2_bound_ms, sh2_bound_by, pairs=sh2_pairs),
+        band_row("raster_tile_band", "band_opaque"),
+        band_row("raster_tile_peel2_band", "band_peel2"),
+        band_row("merged_tile_band", "band_k2", k2=True),
     ]
     for k in kernels:
         log(f"{k['name']}: {k['ms']!r} ms in this run, device "
@@ -1652,7 +1986,7 @@ def main() -> None:
                         "depth_wins": st2["wins"], "ops": sh2_ops,
                         "bytes": sh2_bytes,
                         "launches_app_path": app_shadow_launches},
-        "app": app,
+        "app": app, "sharded": sharded_res,
         "width": SPONZA_W, "height": SPONZA_H, "card": card,
         "wall_s": time.time() - t_start}}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,8 @@ shading  sRGB, texture sampling, PBR (Filament BRDF), Blinn-Phong,
          shadows, skybox, light charts, IBL capture, grid and overlay quad.
 graph    per-frame uniforms, the frame pipeline and its reactive runtime
          (``FrameRenderer``), the render loop (``RenderLoop``).
+parallel the sharded renderer over ``torch.distributed`` (row bands of
+         the frame, a triangle share of the shadow maps a rank).
 apps     ``main_sample`` (frames to PNG), ``live_viewer`` (browser),
          ``editor`` and project files.
 native   host asset-parsing helpers in C++ (PNG, OBJ, JPEG), via ctypes.

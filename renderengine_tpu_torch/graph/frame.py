@@ -222,17 +222,21 @@ def rasterize(setup, height: int, width: int, backend: str,
 
 
 def resolve_attributes(scene, vo: VertexOutputs, coef, g, height: int,
-                       width: int, tri_table: str = "tri_packed"):
+                       width: int, y0: int = 0,
+                       full_height: int | None = None,
+                       tri_table: str = "tri_packed"):
     """G-buffer resolve: per-pixel perspective-correct vertex attributes
     (replaces hardware attribute interpolation feeding surface_pbr.frag).
     Barycentrics come from the kernel when it filled ``g.bary``, else are
-    recomputed from ``coef``."""
+    recomputed from ``coef`` at the rows [y0, y0+height) of a
+    ``full_height`` viewport."""
     tri_id = g.tri_id
     if g.bary is not None:
         b01 = g.bary
         bary = torch.cat([b01, 1.0 - b01[..., :1] - b01[..., 1:2]], -1)
     else:
-        bary, _ = rref.barycentrics_at(coef, tri_id, height, width)
+        bary, _ = rref.barycentrics_at(coef, tri_id, height, width, y0,
+                                       full_height)
     safe_tri = tri_id.clamp_min(0).long()
     trow = scene[tri_table][safe_tri]             # [H,W,8] one gather
     vidx = trow[..., 0:3].long()
@@ -346,7 +350,8 @@ def render_shadow_maps(scene, shadow_viewproj, extent: int,
             prep = None
             if backend == "cuda":
                 prep = cuda_raster.prepare_pairs(ss, slice_h, extent,
-                                                 max_pairs=budget)
+                                                 max_pairs=budget, y0=y0,
+                                                 full_height=extent)
                 overflow = overflow + prep.bins.n_overflow
             g, _ = rasterize(ss, slice_h, extent, backend, prepared=prep,
                              max_pairs=budget, y0=y0, full_height=extent)
@@ -433,10 +438,13 @@ def blend_setup(scene, params, config: RenderConfig):
 
 
 def _list_pairs(scene, setup, config: RenderConfig, corner_key: str,
-                mat_key: str, budget: int, chart_key: str | None = None):
+                mat_key: str, budget: int, chart_key: str | None = None,
+                slice_h: int | None = None, y0: int = 0):
     """A draw list's binned + packed pair table for K1/K2: 8 attribute
     planes (pos3 | normal3 | uv2), or with texture-space shading 4 (chart
-    uv | uv, from ``chart_key``), and the material ids per pair."""
+    uv | uv, from ``chart_key``), and the material ids per pair. A row
+    band [y0, y0+slice_h) of the frame passes its ``restrict_rows`` setup;
+    the budget stays the full frame's."""
     fh, w = config.render_extent()
     if config.texture_space:
         ap = lightchart.tss_attribute_planes(setup, scene[chart_key],
@@ -444,25 +452,29 @@ def _list_pairs(scene, setup, config: RenderConfig, corner_key: str,
     else:
         ap = cuda_raster.attribute_planes(setup, scene[corner_key])
     return cuda_raster.prepare_pairs(
-        setup, fh, w, max_pairs=budget, attr_planes=ap,
-        tri_mat=scene[mat_key], dense_k=config.raster.dense_k or None)
+        setup, fh if slice_h is None else slice_h, w, max_pairs=budget,
+        attr_planes=ap, tri_mat=scene[mat_key],
+        dense_k=config.raster.dense_k or None, y0=y0, full_height=fh)
 
 
-def opaque_pairs(scene, setup, config: RenderConfig):
+def opaque_pairs(scene, setup, config: RenderConfig,
+                 slice_h: int | None = None, y0: int = 0):
     budget = (config.raster.pair_budget
               or _pair_budget(setup.coef.shape[0],
                               config.raster.pairs_per_tri))
     return _list_pairs(scene, setup, config, "corner_attr", "tri_material",
-                       budget, "chart_corner")
+                       budget, "chart_corner", slice_h, y0)
 
 
-def blend_pairs(scene, setup_t, config: RenderConfig):
+def blend_pairs(scene, setup_t, config: RenderConfig,
+                slice_h: int | None = None, y0: int = 0):
     """Bin + pack ONCE: every peel rasters the same blend geometry."""
     budget = (config.blend_pair_budget
               or _pair_budget(setup_t.coef.shape[0],
                               config.raster.pairs_per_tri))
     return _list_pairs(scene, setup_t, config, "corner_attr_blend",
-                       "blend_tri_material", budget, "chart_corner_blend")
+                       "blend_tri_material", budget, "chart_corner_blend",
+                       slice_h, y0)
 
 
 def _tss_shade_fns(scene, config: RenderConfig, ls_atlas, slots_used,
@@ -537,8 +549,24 @@ def _tss_shade_fns(scene, config: RenderConfig, ls_atlas, slots_used,
 def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
                 n_shadows: int, backend: str, has_translucent: bool,
                 slots_used, shadow_lights=None, has_mask: bool = False,
-                alpha_is_factor: bool = False, ls_atlas=None):
+                alpha_is_factor: bool = False, ls_atlas=None,
+                y0: int = 0, slice_h: int | None = None):
+    """The frame body, shared by the whole frame (``y0=0``, ``slice_h``
+    None: the render height) and a row band [y0, y0+slice_h) of it
+    (``parallel.sharded``: one band a rank). Returns (img [slice_h/ssaa,
+    W,4] u8, stats). Every budget stays in full-frame units (pairs, shade
+    tiles per full-frame tile row, penumbra tiles by the full height), so
+    a band selects what the whole frame selects on its rows; the shadow
+    quad, anchored to a screen corner, is drawn on the whole frame only."""
     fh, w = config.render_extent()
+    slice_h = fh if slice_h is None else slice_h
+    is_full = slice_h == fh
+    if config.ssaa > 1 and slice_h % config.ssaa:
+        raise ValueError("the slice height must divide by the SSAA factor")
+
+    def rows(s):
+        return s if is_full else restrict_rows(s, y0, slice_h, fh)
+
     dev = vo.world_pos.device
     cuda = backend == "cuda"
     zero = torch.zeros((), dtype=torch.int64, device=dev)
@@ -589,7 +617,7 @@ def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
                     scene, scene["chart_pos"], scene["chart_normal"],
                     scene["chart_mat"], scene["chart_vis"], view_args)
             tss_dense, tss_blend_px, tss_blend_dense = _tss_shade_fns(
-                scene, config, ls_atlas, slots_used, alpha_is_factor)
+                scene, config, ls_atlas, slots_used, alpha_is_factor, y0)
     # merged launch (K2): on the TSS cuda path the opaque base pass and the
     # first TWO translucent peel layers share one tile walk
     merged_ok = (cuda and tss and blend_pass
@@ -601,14 +629,18 @@ def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
         # (the blend draw list's setup/binning sits before the opaque
         # raster, where a merged opaque+peel launch would consume it)
         setup_t = blend_setup(scene, params, config) if blend_pass else None
+        # the band's rows: bboxes rebased, triangles outside dropped (the
+        # planes stay the full frame's)
+        setup_s = rows(setup)
+        setup_ts = rows(setup_t) if blend_pass else None
     prep = prep_t = None
     if cuda:
         with record_function("frame.bin_pack"):
-            prep = opaque_pairs(scene, setup, config)
+            prep = opaque_pairs(scene, setup_s, config, slice_h, y0)
             overflow = overflow + prep.bins.n_overflow
             tail_overflow = tail_overflow + prep.bins.n_tail
             if blend_pass:
-                prep_t = blend_pairs(scene, setup_t, config)
+                prep_t = blend_pairs(scene, setup_ts, config, slice_h, y0)
                 blend_overflow = blend_overflow + prep_t.bins.n_overflow
                 tail_overflow = tail_overflow + prep_t.bins.n_tail
     if merged_ok:
@@ -618,23 +650,27 @@ def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
             else None
         with record_function("frame.merged_raster"):
             (g, attrs), merged_layers = cuda_raster.rasterize_cuda_merged(
-                fh, w, prep, prep_t, n_attrs_b=nab)
+                slice_h, w, prep, prep_t, y0=y0, full_height=fh,
+                n_attrs_b=nab)
     else:
         with record_function("frame.raster"):
-            g, attrs = rasterize(setup, fh, w, backend, prepared=prep)
+            g, attrs = rasterize(setup_s, slice_h, w, backend, y0=y0,
+                                 full_height=fh, prepared=prep)
     covered = g.tri_id >= 0
     if tss:
         if attrs is not None:
             frag = {"chart_uv": attrs[..., 0:2], "uv": attrs[..., 2:4],
                     "mat_id": g.mat_id}
         else:
-            frag = lightchart.resolve_tss(scene, setup.coef, g, fh, w)
+            frag = lightchart.resolve_tss(scene, setup.coef, g, slice_h, w,
+                                          y0=y0, full_height=fh)
         with record_function("frame.shade"):
             rgba = tss_dense(frag["chart_uv"], frag["uv"], frag["mat_id"],
                              need_alpha=False, covered=covered)
     else:
         frag = (kernel_frag(g, attrs) if attrs is not None else
-                resolve_attributes(scene, vo, setup.coef, g, fh, w))
+                resolve_attributes(scene, vo, setup.coef, g, slice_h, w,
+                                   y0=y0, full_height=fh))
         with record_function("frame.shade"):
             rgba = shade(frag, covered)
     depth_eff = g.depth
@@ -650,27 +686,31 @@ def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
         with record_function("frame.mask"):
             setup_m = _list_setup(scene, params, config, "corner_attr_mask",
                                   "n_mask", config.cull_mode)
+            setup_ms = rows(setup_m)
             mask_budget = _pair_budget(setup_m.coef.shape[0],
                                        config.raster.pairs_per_tri)
             prep_m = None
             if cuda:
-                prep_m = _list_pairs(scene, setup_m, config,
+                prep_m = _list_pairs(scene, setup_ms, config,
                                      "corner_attr_mask", "mask_tri_material",
-                                     mask_budget)
+                                     mask_budget, slice_h=slice_h, y0=y0)
                 overflow = overflow + prep_m.bins.n_overflow
                 tail_overflow = tail_overflow + prep_m.bins.n_tail
-            prev_m = torch.full((fh, w), -1.0, dtype=torch.float32,
+            prev_m = torch.full((slice_h, w), -1.0, dtype=torch.float32,
                                 device=dev)
-            resolved = torch.zeros((fh, w), dtype=torch.bool, device=dev)
+            resolved = torch.zeros((slice_h, w), dtype=torch.bool,
+                                   device=dev)
             for _ in range(config.mask_layers):
-                gm, attrs_m = rasterize(setup_m, fh, w, backend,
+                gm, attrs_m = rasterize(setup_ms, slice_h, w, backend,
+                                        y0=y0, full_height=fh,
                                         peel_bounds=(prev_m, depth_eff),
                                         prepared=prep_m,
                                         max_pairs=mask_budget)
                 covered_m = gm.tri_id >= 0
                 frag_m = (kernel_frag(gm, attrs_m) if attrs_m is not None
                           else resolve_attributes(
-                              scene, vo, setup_m.coef, gm, fh, w,
+                              scene, vo, setup_m.coef, gm, slice_h, w,
+                              y0=y0, full_height=fh,
                               tri_table="mask_tri_packed"))
                 rgba_m = shade(frag_m, covered_m)
                 cutoff = scene["mat_core"][frag_m["mat_id"].long(), 13]
@@ -689,7 +729,8 @@ def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
         with record_function("frame.sky"):
             sky_fn = (skybox.render_skybox_halfres if config.sky_halfres
                       else skybox.render_skybox)
-            sky = sky_fn(scene["cubemap"], params["inv_vp_rot"], fh, w)
+            sky = sky_fn(scene["cubemap"], params["inv_vp_rot"], slice_h, w,
+                         y0=y0, full_height=fh)
             rgb = torch.where(covered[..., None], rgba[..., :3],
                               sky[..., :3])
     else:
@@ -700,10 +741,14 @@ def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
     # the reference's per-mesh back-to-front sorted draws with culling off
     # (RenderScene.cpp:127-159, GraphicsPipelineCache.cpp:307).
     if blend_pass:
+        # budgets are stated in FULL-FRAME tiles: shade_sparse converts
+        # them to a per-tile-row k by the full height, so a band selects
+        # and drops what the whole frame does on its rows
         th, tw = config.raster.tile_h, config.raster.tile_w
         ntx_b = -(-w // tw)
-        nty_b = -(-fh // th)
-        n_tiles = nty_b * ntx_b
+        nty_b = -(-slice_h // th)            # the band's tile rows
+        nty_full = -(-fh // th)
+        n_tiles = nty_full * ntx_b
         shared_budget = max(1, int(n_tiles
                                    * config.translucency_tile_fraction))
         layer_budgets = config.blend_layer_tile_budgets
@@ -750,7 +795,8 @@ def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
         # dual two-nearest kernel): each launch pays the full per-tile
         # walk, so halving launches halves that cost. The first two layers
         # may have come from the merged launch already.
-        prev = torch.full((fh, w), -1.0, dtype=torch.float32, device=dev)
+        prev = torch.full((slice_h, w), -1.0, dtype=torch.float32,
+                          device=dev)
         raster_layers = []
         li = 0
         if merged_layers is not None:
@@ -761,7 +807,8 @@ def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
         with record_function("frame.peel_raster"):
             while li < config.translucency_layers:
                 dual = cuda and li + 1 < config.translucency_layers
-                out = rasterize(setup_t, fh, w, backend,
+                out = rasterize(setup_ts, slice_h, w, backend, y0=y0,
+                                full_height=fh,
                                 peel_bounds=(prev, depth_eff),
                                 prepared=prep_t, active_tiles=active,
                                 peel_layers=2 if dual else 1)
@@ -785,7 +832,7 @@ def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
                     sp_in["bary"] = gt.bary
                 else:  # reference backend: recompute bary densely
                     bary_t, _ = rref.barycentrics_at(setup_t.coef, gt.tri_id,
-                                                     fh, w)
+                                                     slice_h, w, y0, fh)
                     sp_in["bary"] = bary_t[..., :2]
                 if budget >= n_tiles:
                     # full-coverage layer (e.g. a screen-filling banner):
@@ -793,20 +840,20 @@ def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
                     # overhead
                     rgba_t = resolve_and_shade(sp_in, dense=True)
                 else:
-                    rgba_t = shade_sparse(resolve_and_shade, sp_in, fh, w,
-                                          th, tw, max_tiles=budget,
+                    rgba_t = shade_sparse(resolve_and_shade, sp_in, slice_h,
+                                          w, th, tw, max_tiles=budget,
                                           full_height=fh)
                 # observed need per layer in BUDGET-equivalent units
                 # (budget >= need <=> the per-row k covers the busiest tile
                 # row, mirroring shade_sparse's conversion); beyond-k tiles
                 # went unshaded => fold into the overflow counter
                 ct = torch.nn.functional.pad(
-                    covered_t, (0, ntx_b * tw - w, 0, nty_b * th - fh))
+                    covered_t, (0, ntx_b * tw - w, 0, nty_b * th - slice_h))
                 ct = ct.reshape(nty_b, th, ntx_b, tw)
                 row_need = ct.any(3).any(1).sum(-1)              # [nty]
-                shade_tile_counts.append(row_need.max() * nty_b)
+                shade_tile_counts.append(row_need.max() * nty_full)
                 if budget < n_tiles:
-                    k_row = max(1, min(-(-budget // nty_b), ntx_b))
+                    k_row = max(1, min(-(-budget // nty_full), ntx_b))
                     blend_overflow = blend_overflow + (
                         row_need - k_row).clamp_min(0).sum()
                 layers.append((covered_t, rgba_t))
@@ -821,12 +868,14 @@ def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
         with record_function("frame.overlay"):
             rgb = grid_mod.render_grid(params["inv_vp"], params["view"],
                                        params["proj"], depth_eff, rgb,
-                                       full_height=fh)
+                                       y0=y0, full_height=fh)
 
     # shadow-map preview overlay (TexturedQuad grayscale mode): the packed
     # 4x4 stride-2 windows hold even texel (2a-2, 2b-2) in the low 16 bits
-    # of word 0 (int32 bit views here); a half-res preview is plenty
-    if config.show_shadow_quad and shadow_maps is not None:
+    # of word 0 (int32 bit views here); a half-res preview is plenty.
+    # Anchored to a screen corner, so the whole frame only: a band skips
+    # it, as the JAX package's does
+    if config.show_shadow_quad and shadow_maps is not None and is_full:
         with record_function("frame.overlay"):
             draw_src = (shadow_maps.blocks[0, 1:, 1:, 0] & 0xFFFF).to(
                 torch.float32) / 65535.0
@@ -835,7 +884,8 @@ def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
     with record_function("frame.encode"):
         if config.ssaa > 1:
             f = config.ssaa
-            rgb = rgb.reshape(fh // f, f, config.width, f, 3).mean(dim=(1, 3))
+            rgb = rgb.reshape(slice_h // f, f, config.width, f,
+                              3).mean(dim=(1, 3))
         img = encode_srgb8(rgb)
     stats = {"pair_overflow": overflow,
              "pair_tail_overflow": tail_overflow,

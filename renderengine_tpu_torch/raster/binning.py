@@ -54,15 +54,17 @@ def _tile_spans(setup: TriSetup, tile_h: int, tile_w: int):
 
 
 def _corner_cull_planes(setup: TriSetup, tx0, ty0, tile_h: int, tile_w: int,
-                        width: int, height: int):
+                        width: int, height: int, y0: int = 0):
     """Edge values at each triangle's first tile centre, per-tile steps and
-    the conservative tile margin (see ``_bin_dense``)."""
+    the conservative tile margin (see ``_bin_dense``). The tile grid starts
+    at row ``y0`` of a viewport ``height`` rows tall (a row band's grid
+    sits ``y0`` rows down the full frame)."""
     a_ = setup.coef[:, 0:3, 0]                # [T,3]
     b_ = setup.coef[:, 0:3, 1]
     c_ = setup.coef[:, 0:3, 2]
     cpx0 = (tx0 * tile_w + (tile_w - 1) * 0.5 + 0.5
             - width * 0.5).to(torch.float32)[:, None]      # [T,1]
-    cpy0 = (ty0 * tile_h + (tile_h - 1) * 0.5 + 0.5
+    cpy0 = (ty0 * tile_h + y0 + (tile_h - 1) * 0.5 + 0.5
             - height * 0.5).to(torch.float32)[:, None]
     e0 = a_ * cpx0 + b_ * cpy0 + c_                         # [T,3]
     sx = a_ * float(tile_w)
@@ -86,12 +88,19 @@ def _dense_column(j: int, nx, rowbase, ntx: int, planes):
 
 def bin_triangles(setup: TriSetup, height: int, width: int,
                   tile_h: int, tile_w: int, max_pairs: int,
-                  dense_k: int | None = None) -> TileBins:
+                  dense_k: int | None = None, y0: int = 0,
+                  full_height: int | None = None) -> TileBins:
     """``dense_k``: enumerate the first k pairs of every triangle on a
     dense [T,k] grid with a conservative corner cull, and only the span>k
     tail through the slot fill (``_bin_dense``). The dense path is taken
     under the same gate as in the JAX package, so both pick the same
-    algorithm (their outputs differ: the dense path culls pairs)."""
+    algorithm (their outputs differ: the dense path culls pairs).
+
+    ``y0``/``full_height``: the setup is a row band [y0, y0+height) of a
+    ``full_height`` viewport (``setup.restrict_rows``); the corner cull
+    then tests the band's tiles where they lie in the full frame. (The
+    JAX package's dense cull takes the band's own height as the viewport
+    and voids live pairs of any band below the top one: ROADMAP F12.)"""
     ntx = -(-width // tile_w)
     nty = -(-height // tile_h)
     n_tiles = ntx * nty
@@ -107,7 +116,8 @@ def bin_triangles(setup: TriSetup, height: int, width: int,
             and tri_bits + tile_bits <= 32 and max_pairs < (1 << 23)):
         return _bin_dense(setup, span, nx, rowbase, tx0, ty0, n_tiles, ntx,
                           max_pairs, int(dense_k), tri_bits, tile_h, tile_w,
-                          width, height)
+                          width, height if full_height is None
+                          else full_height, y0)
 
     incl = torch.cumsum(span, 0)
     offsets = incl - span
@@ -153,7 +163,8 @@ def live_pairs_estimate(setup: TriSetup, height: int, width: int,
 
 def _bin_dense(setup, span, nx, rowbase, tx0, ty0, n_tiles: int, ntx: int,
                max_pairs: int, k: int, tri_bits: int, tile_h: int,
-               tile_w: int, width: int, height: int) -> TileBins:
+               tile_w: int, width: int, height: int,
+               y0: int = 0) -> TileBins:
     """Dense-grid binning: pair (t, j) for j < min(span, k) comes from a
     [T,k] grid; the span>k tail is compacted to <= _BIG_TRI_CAP triangles
     and enumerated slot by slot; both key streams go through ONE sort
@@ -170,7 +181,7 @@ def _bin_dense(setup, span, nx, rowbase, tx0, ty0, n_tiles: int, ntx: int,
     tris = torch.arange(t, dtype=torch.int64, device=dev)
     inval = n_tiles << tri_bits
     planes = _corner_cull_planes(setup, tx0, ty0, tile_h, tile_w, width,
-                                 height)
+                                 height, y0)
 
     key_cols, live_cols = [], []
     for j in range(k):

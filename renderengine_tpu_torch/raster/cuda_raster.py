@@ -133,13 +133,15 @@ def _pack_pairs(setup: TriSetup, bins: TileBins, attr_planes=None,
 
 def prepare_pairs(setup: TriSetup, height: int, width: int,
                   max_pairs: int | None = None, attr_planes=None,
-                  tri_mat=None, dense_k: int | None = None) -> PreparedPairs:
+                  tri_mat=None, dense_k: int | None = None, y0: int = 0,
+                  full_height: int | None = None) -> PreparedPairs:
     """Bin + pack for ``rasterize_cuda``. ``dense_k``: dense-grid binning
-    (see ``binning.bin_triangles``)."""
+    (see ``binning.bin_triangles``); ``y0``/``full_height``: the setup is
+    a row band of a taller viewport (``setup.restrict_rows``)."""
     if max_pairs is None:
         max_pairs = 4 * setup.coef.shape[0]
     bins = bin_triangles(setup, height, width, TILE_H, TILE_W, max_pairs,
-                         dense_k=dense_k)
+                         dense_k=dense_k, y0=y0, full_height=full_height)
     return _pack_pairs(setup, bins, attr_planes, tri_mat)
 
 
@@ -563,7 +565,7 @@ def rasterize_cuda(setup: TriSetup, height: int, width: int,
     n_tiles = ntx * nty
     if prepared is None:
         prepared = prepare_pairs(setup, height, width, max_pairs,
-                                 attr_planes, tri_mat, dense_k)
+                                 attr_planes, tri_mat, dense_k, y0, fh)
     bins = prepared.bins
     n_attrs = prepared.n_attrs
     bounds = (None if peel_bounds is None

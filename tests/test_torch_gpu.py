@@ -474,3 +474,97 @@ def test_shadow_launch_2048_matches_plain(cuda_device):
         assert torch.equal(cr.raster_tiles(*args),
                            cr._raster_tiles_plain(*args))
 
+
+
+def _band_setup(cuda_device, tss):
+    """A Sponza view at 640x360 and its band [180, 360) (180 is 4 rows
+    into an 8-row tile): the renderer, params and both lists' setups."""
+    from renderengine_tpu_torch.graph.uniforms import unpack_params
+
+    cfg = RenderConfig(width=640, height=360, shadows=False)
+    if tss:
+        cfg = cfg.replace(debug_views=False, texture_space=True,
+                          tss_preshaded_blend=True)
+    r = FrameRenderer(procedural.sponza_scene(
+        width=640, height=360, n_textures=16, target_tris=60_000), cfg,
+        device=cuda_device)
+    params = unpack_params(torch.from_numpy(r.uniform_for_camera()).to(
+        cuda_device), 0)
+    return r, params
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("launch", ["k1_opaque", "k1_dual_peel", "k2"])
+def test_band_launch_matches_plain(cuda_device, launch):
+    """K1 (opaque at 8 attributes, the dual peel bounded by the band's
+    opaque depth) and K2 (2 blend attributes) launched on a row band that
+    starts mid-tile, against their plain versions on the same tables:
+    bit-exact, signs of zero included."""
+    y0, hs, h, w = 180, 180, 360, 640
+    r, params = _band_setup(cuda_device, launch == "k2")
+    sd, cfg = r.scene_dev, r.config
+    s = restrict_rows(fr.opaque_setup(sd, params, cfg), y0, hs, h)
+    pa = fr.opaque_pairs(sd, s, cfg, hs, y0)
+    ntx = -(-w // cr.TILE_W)
+    ba = pa.bins
+    if launch == "k2":
+        st = restrict_rows(fr.blend_setup(sd, params, cfg), y0, hs, h)
+        pb = fr.blend_pairs(sd, st, cfg, hs, y0)
+        args = (pa.pair_data, ba.starts, ba.counts, pb.pair_data,
+                pb.bins.starts, pb.bins.counts, ntx, w, h, y0, 2)
+        kern = cr.merged_tiles(*args)
+        plain = cr._merged_tiles_plain(*args)
+    else:
+        args = (pa.pair_data, ba.starts, ba.counts, ntx, w, h, y0, 8)
+        kw = {}
+        if launch == "k1_dual_peel":
+            opq = cr.raster_tiles(*args)
+            st = restrict_rows(fr.blend_setup(sd, params, cfg), y0, hs, h)
+            pb = fr.blend_pairs(sd, st, cfg, hs, y0)
+            bounds = torch.stack([torch.full_like(opq[:, 0], -1.0),
+                                  opq[:, 0]], 1).contiguous()
+            args = (pb.pair_data, pb.bins.starts, pb.bins.counts, ntx, w, h,
+                    y0, 8)
+            kw = dict(bounds=bounds, dual=True)
+        kern = cr.raster_tiles(*args, **kw)
+        plain = cr._raster_tiles_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(kern, plain)
+    assert torch.equal(torch.signbit(kern), torch.signbit(plain))
+    assert (plain[:, 1] >= 0).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend,world", [("nccl", 1), ("gloo", 2)])
+def test_sharded_renderer_on_the_card(cuda_device, tmp_path, backend, world):
+    """The sharded renderer on the card: a world of 1 over NCCL (the
+    backend of one card a rank) and 2 ranks sharing the card over gloo
+    (gathers through host memory) give the ``FrameRenderer`` frame and
+    shadow blocks, byte for byte, with the same budgets."""
+    import torch.distributed as dist
+
+    from renderengine_tpu_torch.tools import sharded_run
+
+    if backend == "nccl" and not dist.is_nccl_available():
+        pytest.skip("this torch has no NCCL")
+    spec = ("sponza_scene", dict(width=320, height=240, n_textures=8,
+                                 target_tris=20_000))
+    r = FrameRenderer(sharded_run.scene_from_spec(spec),
+                      RenderConfig(width=320, height=240, shadow_extent=512,
+                                   grid=True), device=cuda_device)
+    img, st = r.render()
+    assert not any(int(v) for k, v in st.items() if "overflow" in k)
+    out = sharded_run.launch(
+        {"dist_backend": backend, "world": world,
+         "devices": ["cuda:0"] * world, "runs": {"frame": {
+             "scene": spec, "config": r.config, "backend": "cuda",
+             "shadow_budget": r._shadow_budget_val, "frames": 2,
+             "keep_shadow_maps": True}}}, tmp_path, timeout_s=600)
+    rec = out["ranks"][0]["runs"]["frame"]
+    assert torch.equal(rec["frame"], img.cpu())
+    for a, b in zip(rec["shadow_maps"], r._shadow_maps):
+        assert torch.equal(a, b.cpu())
+    assert out["ranks"][0]["transport"] == (
+        "nccl" if backend == "nccl" else "gloo-host")
+    for rk in out["ranks"]:
+        assert rk["runs"]["frame"]["launches"].get("(8, False, False)") == 2

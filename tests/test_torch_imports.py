@@ -30,8 +30,8 @@ print(",".join(names))
 """
 
 # the modules of the second slice (shadows, sky, translucency), the
-# third (texture-space shading) and the fifth (the apps and the runtime
-# under them)
+# third (texture-space shading), the fifth (the apps and the runtime
+# under them) and the sixth (the sharded renderer)
 SLICE_MODULES = ("shading.shadow", "shading.fitting", "shading.skybox",
                  "shading.sampling", "graph.frame", "raster.cuda_raster",
                  "tools.goldens", "tools.profile_frame", "shading.lightchart",
@@ -43,7 +43,8 @@ SLICE_MODULES = ("shading.shadow", "shading.fitting", "shading.skybox",
                  "scene.loader_obj", "scene.loader_gltf", "scene.loader_dae",
                  "scene.loader_fbx", "shading.grid", "shading.textured_quad",
                  "shading.ibl", "apps.main_sample", "apps.live_viewer",
-                 "apps.project", "apps.editor")
+                 "apps.project", "apps.editor", "parallel",
+                 "parallel.sharded", "tools.sharded_run")
 
 
 def test_port_modules_import_no_jax():
@@ -69,7 +70,7 @@ def _imported_modules(path: Path) -> set:
     return mods
 
 
-@pytest.mark.parametrize("path", ["chip_smoke.py"] + sorted(
+@pytest.mark.parametrize("path", ["chip_smoke.py", "bench_torch.py"] + sorted(
     str(p.relative_to(ROOT)) for p in (ROOT / "renderengine_tpu_torch").rglob(
         "*.py")))
 def test_no_jax_import_statement(path):
