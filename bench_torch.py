@@ -25,7 +25,10 @@ anisotropic sampling); ``tss_headline`` the texture-space headline
 ``sky_halfres``). Each mode's renderer draws one frame (the shadow pass
 and, with texture-space shading, the visibility bake), then ``--frames``
 warm frames, each timed on the host clock around ``render()`` and a
-synchronize; ``value`` is the median of the warm frames. The budgets are
+synchronize; ``value`` is the median of the warm frames. On a CUDA device
+each warm frame is a replay of the frame program the renderer captured
+into a CUDA graph (at init, and again after a budget change); on the CPU
+the pass chain runs eagerly. The budgets are
 the renderer's own (estimated at init, grown and re-tuned by its poll).
 ``vs_baseline`` is fps / 60, the reference's design target
 (BASELINE.md), recorded as measured: it is not compared with the JAX

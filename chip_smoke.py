@@ -51,6 +51,22 @@ Sponza (260k triangles, 200 textures of 512^2), checking their output:
   and without the tuned-config record (in a directory of its own), the
   app's 2048^2 shadow launch against its plain version, and the wall ms
   a frame of ``RenderLoop`` against ``render()`` + ``.cpu()``;
+- the compiled frame (phase graph-path): on a CUDA device
+  ``FrameRenderer`` captures its frame and its shadow pass into CUDA
+  graphs at init and after every budget change, and ``render()`` replays
+  them. For the per-pixel default, the texture-space headline and the
+  app's per-pixel config (2048^2 maps), each with the overflow poll on:
+  3 warm ``render()`` calls under ``torch.cuda.set_sync_debug_mode
+  ("error")`` that replay the frame program (no capture, no eager frame,
+  the launches of 3 frames); for 3 camera poses the replayed frame equals
+  ``render_frame`` dispatched op by op at the same budgets, byte for
+  byte, every counter 0; a pair overflow fed to the poll recaptures, and
+  the frame after it and the frame after ``mark_shadows_dirty()`` equal
+  their eager frames; it prints the capture and instantiate ms, the
+  graph pools' bytes, the warm frame ms replayed against eager (median of
+  10 each, alternating), ``torch.profiler``'s busy share and kernels a
+  frame over replays and over one eager frame, and ``RenderLoop`` against
+  ``render()`` + ``.cpu()``;
 - the sharded path (phase sharded, ``parallel.sharded.ShardedRenderer``
   through ``tools.sharded_run``): 2 rank processes on the one card over
   gloo (NCCL puts no two ranks on one device; the gathers go through
@@ -78,22 +94,25 @@ of timings; the last line is
 
 Numbers: kernel times are medians of CUDA-event-timed launches at the
 paths' launch shapes (the median of three rounds of 30), each beside the
-launch with only its densest tile left, the ratio of the two and
-``torch.profiler``'s device time and the host time a call takes to
-reach its launch (calls issued back to back); plain-version times one
-CUDA-event-timed run;
-``bound_ms`` is the larger of (bytes moved / 3.35 TB/s) and (operations /
-67 TFLOP/s FP32), counted from this run's inputs; the texture-space bakes
-and the specular chart pass are CUDA-event-timed calls (host dispatch
-included); frame times are host clock around ``render()`` followed by a
-synchronize. The launch counts are set to 0 just before each path is
-driven and read just after; each kernel row's ``launches`` is that of
-the path whose launch shape it was timed at (K2 at 2 blend attributes:
-the headline frames; K2 at 4 and K1's texture-space dual peel: the
-factored frame; K1's texture-space opaque pass: the frame without
-translucency). Every number in the kernel line is measured in this run
-(``bound_ms`` is computed from it); the one-block-per-tile kernels' times
-before the split walk, on the same card type, are printed apart as
+same launch captured alone in a CUDA graph (``in_graph_ms``: the median
+of 30 replays, no host wrapper), the launch with only its densest tile
+left, the ratio of the two, ``torch.profiler``'s device time and the
+host time a call takes to reach its launch (calls issued back to back);
+plain-version times one CUDA-event-timed run; ``bound_ms`` is the larger
+of (bytes moved / 3.35 TB/s) and (operations / 67 TFLOP/s FP32), counted
+from this run's inputs; the texture-space bakes and the specular chart
+pass are CUDA-event-timed calls (host dispatch included); frame times are
+host clock around ``render()`` followed by a synchronize. The launch
+counts are set to 0 just before each path is driven and read just after;
+a captured program adds the launches its capture recorded at each replay
+(the capture itself launches nothing), and a capture's warm-up frame
+counts as the frame it is; each kernel row's ``launches`` is that of the
+path whose launch shape it was timed at (K2 at 2 blend attributes: the
+headline frames; K2 at 4 and K1's texture-space dual peel: the factored
+frame; K1's texture-space opaque pass: the frame without translucency).
+Every number in the kernel line is measured in this run (``bound_ms`` is
+computed from it); the one-block-per-tile kernels' times before the split
+walk, on the same card type, are printed apart as
 history (``BEFORE_SPLIT_MS``).
 """
 
@@ -211,16 +230,49 @@ def host_ms(fn, reps: int) -> float:
     return (t1 - t0) * 1e3 / reps
 
 
+def graph_ms(fn, reps: int = 30) -> float:
+    """The CUDA-event median over ``reps`` replays of one call of ``fn``
+    captured in a CUDA graph: the launch without its host wrapper. The
+    capture launches nothing, so its counts are taken back out."""
+    from renderengine_tpu_torch.raster import cuda_raster as cr
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                     # the workspace becomes the side stream's
+        snap = cr.count_snapshot()
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin()
+        fn()
+        graph.capture_end()
+        cr.add_counts(cr.counts_since(snap), -1)
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    del graph
+    return statistics.median(times)
+
+
 def time_shape(label, fn, solo_fn, reps=30):
     """A launch shape's numbers: the CUDA-event median over ``reps``
     launches (the median of three such rounds, which differ by the host's
-    noise), the densest tile alone (median over ``reps``), the ratio of
-    the two, the profiler's device time per launch of the kernel and the
-    host time per call."""
+    noise), the same launch replayed from a CUDA graph (median over
+    ``reps`` replays), the densest tile alone (median over ``reps``), the
+    ratio of the two, the profiler's device time per launch of the kernel
+    and the host time per call."""
     rounds = [cuda_ms(fn, reps) for _ in range(3)]
     ms = statistics.median(rounds)
     densest = cuda_ms(solo_fn, reps)
-    r = {"ms": ms, "rounds_ms": rounds, "densest_tile_ms": densest,
+    r = {"ms": ms, "rounds_ms": rounds, "in_graph_ms": graph_ms(fn, reps),
+         "densest_tile_ms": densest,
          "launch_over_densest": ms / densest, "device_ms": device_ms(fn, 10),
          "host_ms": host_ms(fn, reps)}
     log(f"  times [{label}]: {r}")
@@ -238,6 +290,49 @@ def ref_frame_ms(fn, reps: int = 3) -> list:
         torch.cuda.synchronize()
         out.append((time.perf_counter() - t0) * 1e3)
     return out
+
+
+def expected_launches(warm: dict, caps: dict, n_maps: int,
+                      shadow_v) -> dict:
+    """The K1/K2 launches of one ``render()`` by variant, from the
+    renderer's program counts of that call (``caps``: the change of
+    ``FrameRenderer.program_counts``): one frame's ``warm`` launches for
+    the replay and as many again for each capture's warm-up frame, and
+    ``n_maps`` shadow launches for each shadow replay and capture."""
+    want = {v: n * (caps["frame_replays"] + caps["frame_captures"])
+            for v, n in warm.items()}
+    want[shadow_v] = n_maps * (caps["shadow_replays"]
+                               + caps["shadow_captures"])
+    return {v: n for v, n in want.items() if n}
+
+
+def counts_delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in before}
+
+
+def loop_vs_sequential(r, n=10):
+    """Wall ms a frame: RenderLoop with two frames in flight, then
+    render() + .cpu() one frame at a time, on one renderer."""
+    from renderengine_tpu_torch.graph import render_loop
+
+    with mock.patch.object(render_loop, "FrameRenderer",
+                           lambda *a, **k: r):
+        loop = render_loop.RenderLoop(r.scene_host, r.config,
+                                      target_fps=0.0)
+    for _ in range(2):
+        loop.render_one()
+    loop.drain()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        loop.render_one()
+    loop.drain()
+    loop_ms = (time.perf_counter() - t0) * 1e3 / n
+    t0 = time.perf_counter()
+    for _ in range(n):
+        r.render()[0].cpu()
+    seq_ms = (time.perf_counter() - t0) * 1e3 / n
+    return {"loop_ms": loop_ms, "sequential_ms": seq_ms}
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -846,10 +941,11 @@ def main() -> None:
         reset_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        frame_ms, per_frame, helpers = [], [], []
+        frame_ms, per_frame, helpers, main_caps = [], [], [], []
         for _ in range(N_FRAMES):
             before = dict(cr.variant_counts)
             h_before = dict(cr.helper_counts)
+            p_before = dict(renderer.program_counts)
             t0 = time.perf_counter()
             img, stats = renderer.render()
             torch.cuda.synchronize()
@@ -858,6 +954,8 @@ def main() -> None:
                               for v in (opaque_v, shadow_v, peel_v)})
             helpers.append({k: cr.helper_counts[k] - h_before[k]
                             for k in cr.helper_counts})
+            main_caps.append(counts_delta(p_before,
+                                          renderer.program_counts))
         total = cr.launch_counts["raster_tile"]
         launches = {v: cr.variant_counts[v]
                     for v in (opaque_v, shadow_v, peel_v)}
@@ -867,10 +965,14 @@ def main() -> None:
             f"zeroings {helpers}, frame ms {frame_ms} (one block per tile, warm: "
             f"{BEFORE_SPLIT_FRAME_MS['per_pixel']}); split-walk workspace "
             f"{mem['workspace_bytes']} B, peak device memory of the frames "
-            f"{mem['peak_bytes']} B")
+            f"{mem['peak_bytes']} B; captures and replays {main_caps}; "
+            f"programs {renderer.program_stats()}")
         for i, pf in enumerate(per_frame):
-            want = {opaque_v: 1, peel_v: 1, shadow_v: n_maps if i == 0 else 0}
-            if pf != want:
+            want = expected_launches({opaque_v: 1, peel_v: 1}, main_caps[i],
+                                     n_maps, shadow_v)
+            if main_caps[i]["frame_replays"] != 1:
+                raise AssertionError(f"frame {i}: {main_caps[i]}")
+            if {v: n for v, n in pf.items() if n} != want:
                 raise AssertionError(f"frame {i}: K1 launches {pf}, "
                                      f"expected {want}")
             if helpers[i]["workspace_zero"] > sum(pf.values()):
@@ -935,10 +1037,11 @@ def main() -> None:
             f"{torch.equal(img2, img)} ({frac:.6f} within 1/255, max {mx})")
         if not goldens.meets_bar(frac, mx):
             raise AssertionError("the re-rendered maps changed the frame")
-        # the same frame with K1 swapped for its plain version on the card
-        # (the cached shadow maps stay: phase k1-shadow held that launch)
+        # the same frame with K1 swapped for its plain version on the card,
+        # dispatched op by op (the cached shadow maps stay: phase k1-shadow
+        # held that launch)
         with mock.patch.object(cr, "raster_tiles", cr._raster_tiles_plain):
-            ref, _ = renderer.render()
+            ref, _ = renderer.render_eager()
         frac, mx = goldens.golden_bar(img_np, ref.cpu().numpy())
         log(f"phase main-path: vs plain-K1 frame {frac:.6f} within 1/255, "
             f"max {mx}/255")
@@ -1272,23 +1375,28 @@ def main() -> None:
             return {v: cr.variant_counts[v] for v in tss_variants}
 
         def plain_frame(r):
+            """The renderer's last frame dispatched op by op through the
+            plain versions."""
             with mock.patch.object(cr, "raster_tiles",
                                    cr._raster_tiles_plain), \
                     mock.patch.object(cr, "merged_tiles",
                                       cr._merged_tiles_plain):
-                return r.render()[0]
+                return r.render_eager()[0]
 
         reset_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         tss_ms, tss_per_frame, tss_stats, tss_helpers = [], [], [], []
+        tss_caps = []
         for _ in range(TSS_FRAMES):
             before = dict(cr.variant_counts)
             h_before = dict(cr.helper_counts)
+            p_before = dict(tss_r.program_counts)
             t0 = time.perf_counter()
             timg, tst = tss_r.render()
             torch.cuda.synchronize()
             tss_ms.append((time.perf_counter() - t0) * 1e3)
+            tss_caps.append(counts_delta(p_before, tss_r.program_counts))
             tss_per_frame.append({str(v): cr.variant_counts[v]
                                   - before.get(v, 0) for v in tss_variants
                                   if cr.variant_counts[v] - before.get(v, 0)})
@@ -1310,11 +1418,13 @@ def main() -> None:
             f"frames {tss_mem['peak_bytes']} B; "
             f"specular chart pass {spec_ms:.3f} ms, visibility bake + static"
             f" tables {vis_ms:.2f} ms on the card; counters {tss_stats}; "
-            f"shadow overflow {tss_r.shadow_overflow}")
+            f"shadow overflow {tss_r.shadow_overflow}; captures and replays "
+            f"{tss_caps}; programs {tss_r.program_stats()}")
         for i, pf in enumerate(tss_per_frame):
-            want = {str(k2_v2): 1}
-            if i == 0:
-                want[str(shadow_v)] = tss_r.n_shadows
+            want = {str(k): n for k, n in expected_launches(
+                {k2_v2: 1}, tss_caps[i], tss_r.n_shadows, shadow_v).items()}
+            if tss_caps[i]["frame_replays"] != 1:
+                raise AssertionError(f"TSS frame {i}: {tss_caps[i]}")
             if tss_helpers[i]["workspace_zero"] > sum(pf.values()):
                 raise AssertionError(f"TSS frame {i}: zeroings "
                                      f"{tss_helpers[i]}")
@@ -1341,11 +1451,11 @@ def main() -> None:
         if lit < 0.9 or vs_pp["mean"] > 20.0 or vs_pp["within_32"] < 0.8:
             raise AssertionError("the TSS frame is far from the per-pixel "
                                  "frame")
-        # the same frame with K2 replaced by K1's opaque + dual launches:
-        # identical, byte for byte
+        # the same frame with K2 replaced by K1's opaque + dual launches,
+        # dispatched op by op: identical, byte for byte
         fr._FORCE_UNMERGED = True
         try:
-            unm, _ = tss_r.render()
+            unm, _ = tss_r.render_eager()
         finally:
             fr._FORCE_UNMERGED = False
         same = torch.equal(unm, timg)
@@ -1428,6 +1538,194 @@ def main() -> None:
     except Exception as e:  # noqa: BLE001
         fail(phase, e)
 
+    # phase: the compiled frame. For the per-pixel default, the TSS
+    # headline and the app's per-pixel config (2048^2 maps), each with the
+    # poll on: the renderer captures its frame and shadow programs at init
+    # (FrameRenderer.program_stats: capture and instantiate ms, the graph
+    # pools' bytes); after 4 settling frames, 3 warm render() calls run
+    # under set_sync_debug_mode("error") and replay the frame program (no
+    # capture, no call of render_frame, the launches of 3 frames); for 3
+    # camera poses the replayed frame equals render_frame dispatched op by
+    # op at the same budgets, byte for byte, every counter 0; a pair
+    # overflow fed to the poll re-tunes and recaptures, and the frame
+    # still equals its eager frame, as does the frame after
+    # mark_shadows_dirty(); then the warm frame ms replayed against eager
+    # (median of 10 each, alternating), torch.profiler over replays and
+    # (one frame) and over one eager frame (busy share, kernels a frame)
+    # and RenderLoop against render() + .cpu()
+    phase = "graph-path"
+    try:
+        import copy
+
+        from renderengine_tpu_torch.tools import profile_frame
+        t_graph = time.time()
+        graph_res = {}
+        cam0 = copy.deepcopy(scene.camera)
+        eye0 = np.asarray(cam0.eye, np.float32)
+        target0 = np.asarray(cam0.look_at, np.float32)
+        up0 = np.asarray(getattr(cam0, "up", (0.0, 1.0, 0.0)), np.float32)
+
+        def pose(a):
+            d = eye0 - target0
+            c, s_ = np.cos(a), np.sin(a)
+            scene.camera.set_camera_view(
+                target0 + np.array([c * d[0] - s_ * d[2], d[1],
+                                    s_ * d[0] + c * d[2]], np.float32),
+                target0, up0)
+
+        def over(st):
+            return {k: int(v) for k, v in st.items() if "overflow" in k}
+
+        def prof_summary(p):
+            return {k: p[k] for k in ("wall_ms_per_frame",
+                                      "device_busy_ms_per_frame",
+                                      "device_busy_share",
+                                      "kernel_launches_per_frame")} | {
+                "top_kernels": p["top_kernels"][:5]}
+
+        app_cfg_pp = RenderConfig(width=SPONZA_W, height=SPONZA_H,
+                                  shadow_extent=2048, chart_density=0.5)
+        for tag, gcfg in (("per_pixel",
+                           RenderConfig(width=SPONZA_W, height=SPONZA_H)),
+                          ("tss_headline", tss_cfg),
+                          ("app_per_pixel", app_cfg_pp)):
+            res = {}
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            alloc0 = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            r = fr.FrameRenderer(scene, gcfg)
+            torch.cuda.synchronize()
+            res["init_s"] = time.time() - t0
+            res["init_peak_bytes"] = torch.cuda.max_memory_allocated() - alloc0
+            res["init_programs"] = r.program_stats()
+            for _ in range(4):
+                r.render()
+                torch.cuda.synchronize()
+            # three warm frames under the sync guard: replays only
+            eager_calls = []
+            orig_rf = fr.render_frame
+
+            def counting_rf(*a, **k):
+                eager_calls.append(1)
+                return orig_rf(*a, **k)
+
+            reset_counts()
+            p0 = dict(r.program_counts)
+            with mock.patch.object(fr, "render_frame", counting_rf):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    for _ in range(3):
+                        img, st = r.render()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            warm = counts_delta(p0, r.program_counts)
+            got = {str(k): n for k, n in cr.variant_counts.items()}
+            want = {str(k): 3 * n
+                    for k, n in r._frame_prog.launches[1].items()}
+            res["warm"] = {"sync_calls": 0, "renders": warm,
+                           "render_frame_calls": len(eager_calls),
+                           "launches": got, "counters": over(st)}
+            log(f"phase graph-path [{tag}]: init {res['init_s']:.1f} s, "
+                f"programs {res['init_programs']}; 3 warm render() under "
+                f"sync debug mode 'error': {res['warm']}")
+            if (warm["frame_replays"] != 3 or warm["frame_captures"]
+                    or warm["shadow_replays"]
+                    or eager_calls or got != want or any(over(st).values())):
+                raise AssertionError(f"{tag}: warm frames {res['warm']}, "
+                                     f"launches expected {want}")
+            # three camera poses: the replay against the eager frame
+            poses = []
+            for a in (0.0, 0.06, 0.12):
+                pose(a)
+                img, st = r.render()
+                e_img, e_st = r.render_eager()
+                poses.append({"angle": a, "equal": torch.equal(img, e_img),
+                              "counters": over(st),
+                              "eager_counters": over(e_st),
+                              "shadow_overflow": r.shadow_overflow})
+            scene.camera = copy.deepcopy(cam0)
+            res["poses"] = poses
+            # a forced re-tune through the poll: a pair overflow grows the
+            # pair budget, the frame program is captured again
+            torch.cuda.synchronize()
+            r._pending_overflow.clear()
+            z = torch.zeros((), dtype=torch.int64, device=dev)
+            r._queue_stats({"pair_overflow": z + 4096,
+                            "pair_tail_overflow": z,
+                            "blend_pair_overflow": z})
+            torch.cuda.synchronize()
+            caps0 = r.program_counts["frame_captures"]
+            b0 = r.config.raster.pair_budget
+            img, st = r.render()
+            e_img, e_st = r.render_eager()
+            res["retune"] = {
+                "pair_budget": [b0, r.config.raster.pair_budget],
+                "captures": r.program_counts["frame_captures"] - caps0,
+                "equal": torch.equal(img, e_img), "counters": over(st),
+                "recapture": r.program_stats()["frame"]}
+            # mark_shadows_dirty(): the shadow program replays into the pack
+            ptrs = [t.data_ptr() for t in r._shadow_maps]
+            s0 = r.program_counts["shadow_replays"]
+            r.mark_shadows_dirty()
+            img, st = r.render()
+            e_img, e_st = r.render_eager()
+            res["dirty_shadows"] = {
+                "equal": torch.equal(img, e_img), "counters": over(st),
+                "shadow_replays": r.program_counts["shadow_replays"] - s0,
+                "shadow_overflow": r.shadow_overflow,
+                "pack_kept": ptrs == [t.data_ptr() for t in r._shadow_maps]}
+            log(f"phase graph-path [{tag}]: poses {poses}; re-tune "
+                f"{res['retune']}; dirty shadows {res['dirty_shadows']}")
+            checks = poses + [res["retune"], res["dirty_shadows"]]
+            if not all(c["equal"] and not any(c["counters"].values())
+                       and not c.get("shadow_overflow") for c in checks) \
+                    or any(any(p["eager_counters"].values()) for p in poses) \
+                    or res["retune"]["captures"] != 1 \
+                    or not res["retune"]["pair_budget"][1] > b0 \
+                    or res["dirty_shadows"]["shadow_replays"] != 1 \
+                    or not res["dirty_shadows"]["pack_kept"]:
+                raise AssertionError(f"{tag}: a replayed frame differs from "
+                                     f"its eager frame or counted over")
+            # warm frame ms, replayed against eager, alternating
+            rep_ms, eag_ms = [], []
+            for _ in range(10):
+                for fn, acc in ((r.render, rep_ms), (r.render_eager, eag_ms)):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    acc.append((time.perf_counter() - t0) * 1e3)
+            res["frame_ms"] = {"replayed_median": statistics.median(rep_ms),
+                               "eager_median": statistics.median(eag_ms),
+                               "replayed": rep_ms, "eager": eag_ms}
+            # one frame each (the per-pixel frame is ~63k kernels, and the
+            # profiler's own processing of them takes seconds); the app's
+            # per-pixel eager frame is the default's with smaller maps
+            res["profiler_replayed"] = prof_summary(
+                profile_frame.profiled(r.render, 1, None))
+            if tag != "app_per_pixel":
+                res["profiler_eager"] = prof_summary(
+                    profile_frame.profiled(r.render_eager, 1, None))
+            res["loop"] = loop_vs_sequential(
+                r, n=20 if tag == "tss_headline" else 5)
+            res["programs"] = r.program_stats()
+            log(f"phase graph-path [{tag}]: warm frame ms replayed "
+                f"{res['frame_ms']['replayed_median']:.2f} vs eager "
+                f"{res['frame_ms']['eager_median']:.2f} (median of 10 each, "
+                f"alternating); replayed {res['profiler_replayed']}; eager "
+                f"{res.get('profiler_eager')}; RenderLoop vs render() + "
+                f".cpu() "
+                f"{res['loop']}; {card}")
+            graph_res[tag] = res
+            del r, img, e_img
+        graph_res["wall_s"] = time.time() - t_graph
+        log(f"phase graph-path: {graph_res['wall_s']:.1f} s")
+    except Exception as e:  # noqa: BLE001
+        fail(phase, e)
+
     # phase: the app path, through the entry points a user calls:
     # engine.init(), then main_sample.main() in process on the Sponza at
     # 1920x1080 with the app's defaults (2048^2 shadow maps), per-pixel and
@@ -1438,12 +1736,10 @@ def main() -> None:
     phase = "app-path"
     try:
         import tempfile
-        import warnings
 
         from renderengine_tpu_torch.apps import main_sample
         from renderengine_tpu_torch.core import engine
-        from renderengine_tpu_torch.graph import render_loop
-        from renderengine_tpu_torch.tools import profile_frame
+        from renderengine_tpu_torch.tools import profile_frame, sync_sites
         from renderengine_tpu_torch.utils import png
         t_app = time.time()
         t0 = time.time()
@@ -1466,8 +1762,11 @@ def main() -> None:
                 if len(calls) == 1:
                     torch.cuda.synchronize()
                 before = dict(cr.variant_counts)
+                p_before = dict(self.program_counts)
                 img, st = orig_render(self, view_props)
                 calls.append({"r": self, "cfg": self.config, "stats": st,
+                              "renders": counts_delta(p_before,
+                                                      self.program_counts),
                               "launches": {
                                   v: cr.variant_counts[v] - before.get(v, 0)
                                   for v in cr.variant_counts
@@ -1517,8 +1816,11 @@ def main() -> None:
             return not (any(int(v) for k, v in st.items() if "overflow" in k)
                         or r.shadow_overflow)
 
-        def check_frames(tag, calls, pngs, want_first, want_warm):
-            """Launches per frame; no overflow from the second frame on;
+        def check_frames(tag, calls, pngs, want_warm):
+            """Launches per frame (``want_warm`` a replay, as many again
+            for a capture's warm-up frame, the shadow maps' launches for a
+            shadow replay or capture), each frame a replay of the
+            captured frame program; no overflow from the second frame on;
             every frame from the second on equals render() with the config
             that frame used (the controller may re-tune between frames),
             byte for byte. Frames of different configs are held to each
@@ -1526,9 +1828,11 @@ def main() -> None:
             peeled layer's aniso budget: ROADMAP F9)."""
             r = calls[-1]["r"]
             for i, c in enumerate(calls):
-                want = dict(want_warm)
-                if i == 0:
-                    want.update(want_first)
+                want = expected_launches(want_warm, c["renders"],
+                                         c["r"].n_shadows, shadow_v)
+                if c["renders"]["frame_replays"] != 1:
+                    raise AssertionError(f"{tag} frame {i}: renders "
+                                         f"{c['renders']}")
                 if c["launches"] != want:
                     raise AssertionError(f"{tag} frame {i}: launches "
                                          f"{c['launches']}, expected {want}")
@@ -1567,9 +1871,7 @@ def main() -> None:
 
         # the per-pixel app frame
         pp_calls, pp_pngs, pp_counters, pp_wall = run_app("per_pixel", [], 5)
-        n_app_maps = pp_calls[0]["r"].n_shadows
         app_r, pp_check = check_frames("per-pixel", pp_calls, pp_pngs,
-                                       {shadow_v: n_app_maps},
                                        {opaque_v: 1, peel_v: 1})
         app_cfg = app_r.config
         app["per_pixel"] = {"wall_s": pp_wall, "counters": pp_counters,
@@ -1577,7 +1879,9 @@ def main() -> None:
                             "shadow_extent": app_cfg.shadow_extent,
                             "launches": [{str(k): n for k, n in
                                           c["launches"].items()}
-                                         for c in pp_calls]}
+                                         for c in pp_calls],
+                            "renders": [c["renders"] for c in pp_calls],
+                            "programs": app_r.program_stats()}
         app_shadow_launches = sum(c["launches"].get(shadow_v, 0)
                                   for c in pp_calls)
         # the re-tunes: the budgets of frame 1 and after the first change
@@ -1620,7 +1924,8 @@ def main() -> None:
         app_r._react_overflow = False
         for key, c in (("frame1", first), ("final", app_cfg)):
             app_r.config = c
-            prof = profile_frame.profiled(app_r, 2, None)
+            # the spans fire only while the pass chain is dispatched
+            prof = profile_frame.profiled(app_r.render_eager, 1, None)
             retune[key]["peel_shade_ms"] = \
                 prof["span_device_ms_per_frame"]["frame.peel_shade"]
             retune[key]["shade_ms"] = \
@@ -1630,21 +1935,18 @@ def main() -> None:
         app_r._react_overflow = True
         app["retune"] = retune
         log(f"phase app-path: re-tunes {retune}")
-        # synchronizing calls a whole warm render() makes (informational)
-        torch.cuda.synchronize()
-        with warnings.catch_warnings(record=True) as wrec:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                app_r.render()
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        sync_msgs = [str(w.message) for w in wrec
-                     if "synchroniz" in str(w.message)]
-        app["warm_render_sync_calls"] = len(sync_msgs)
-        log(f"phase app-path: a warm render() makes {len(sync_msgs)} "
-            f"synchronizing calls: {sorted(set(m[:80] for m in sync_msgs))}")
+        # synchronizing calls a whole warm render() makes, and the frame
+        # dispatched op by op: none (tools/sync_sites.py, each call's site)
+        warm_sync = {"render": sync_sites.sync_sites(app_r.render),
+                     "render_eager": sync_sites.sync_sites(
+                         app_r.render_eager)}
+        app["warm_render_sync_calls"] = warm_sync["render"]["calls"]
+        app["warm_render_sync"] = warm_sync
+        log(f"phase app-path: a warm render() makes "
+            f"{warm_sync['render']['calls']} synchronizing calls, the eager "
+            f"frame {warm_sync['render_eager']['calls']}: {warm_sync}")
+        if warm_sync["render"]["calls"] or warm_sync["render_eager"]["calls"]:
+            raise AssertionError("a warm render() synchronizes")
 
         # the tuned record: a second renderer of the same scene and config
         # adopts the first one's budgets without running an estimator
@@ -1686,28 +1988,6 @@ def main() -> None:
             raise AssertionError("the tuned record was not adopted")
         del r_est, r_rec
 
-        def loop_vs_sequential(r, n=10):
-            """Wall ms a frame: RenderLoop with two frames in flight, then
-            render() + .cpu() one frame at a time, on one renderer."""
-            with mock.patch.object(render_loop, "FrameRenderer",
-                                   lambda *a, **k: r):
-                loop = render_loop.RenderLoop(r.scene_host, r.config,
-                                              target_fps=0.0)
-            for _ in range(2):
-                loop.render_one()
-            loop.drain()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(n):
-                loop.render_one()
-            loop.drain()
-            loop_ms = (time.perf_counter() - t0) * 1e3 / n
-            t0 = time.perf_counter()
-            for _ in range(n):
-                r.render()[0].cpu()
-            seq_ms = (time.perf_counter() - t0) * 1e3 / n
-            return {"loop_ms": loop_ms, "sequential_ms": seq_ms}
-
         app["loop_timing"] = {"per_pixel": loop_vs_sequential(app_r)}
         del app_r, pp_calls, scene_app
         torch.cuda.empty_cache()
@@ -1716,7 +1996,6 @@ def main() -> None:
         ts_calls, ts_pngs, ts_counters, ts_wall = run_app(
             "tss", ["--textureSpace"], 5)
         ts_r, ts_check = check_frames("texture-space", ts_calls, ts_pngs,
-                                      {shadow_v: ts_calls[0]["r"].n_shadows},
                                       {k2_v4: 1})
         app["tss"] = {"wall_s": ts_wall, "counters": ts_counters,
                       "frames": ts_check,
@@ -1889,7 +2168,7 @@ def main() -> None:
                 "replaces": K2_REPLACES if k2 else REPLACES,
                 "launches": launches, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-                "library_ms": None,
+                "library_ms": None, "in_graph_ms": t["in_graph_ms"],
                 "densest_tile_ms": t["densest_tile_ms"],
                 "launch_over_densest": t["launch_over_densest"],
                 "device_ms": t["device_ms"], "host_ms": t["host_ms"],
@@ -1928,7 +2207,8 @@ def main() -> None:
         band_row("merged_tile_band", "band_k2", k2=True),
     ]
     for k in kernels:
-        log(f"{k['name']}: {k['ms']!r} ms in this run, device "
+        log(f"{k['name']}: {k['ms']!r} ms in this run, in a graph "
+            f"{k['in_graph_ms']!r} ms, device "
             f"{k['device_ms']!r} ms, host {k['host_ms']!r} ms a call; one "
             f"block per tile, before the split walk (history, PERF.md): "
             f"{BEFORE_SPLIT_MS.get(k['name'])!r} ms")
@@ -1986,7 +2266,7 @@ def main() -> None:
                         "depth_wins": st2["wins"], "ops": sh2_ops,
                         "bytes": sh2_bytes,
                         "launches_app_path": app_shadow_launches},
-        "app": app, "sharded": sharded_res,
+        "graph": graph_res, "app": app, "sharded": sharded_res,
         "width": SPONZA_W, "height": SPONZA_H, "card": card,
         "wall_s": time.time() - t_start}}), flush=True)
     print(json.dumps({"ok": True, "device": {

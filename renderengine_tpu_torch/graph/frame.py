@@ -5,10 +5,14 @@ This layer replaces the reference's command-buffer recording + render
 passes (``RenderScene::Render``, ``RenderScene.cpp:168-242``) as straight
 function composition over tensors: shadow depth pass -> opaque base pass
 -> alpha-mask cutoff pass -> skybox -> depth-peeled translucency -> sRGB
-encode. PyTorch runs eagerly, so there is no per-config compile cache;
-``FrameRenderer`` uploads the scene once, sizes the static budgets from
-the initial camera, caches the shadow maps until ``mark_shadows_dirty()``
-and marshals one packed uniform vector per frame.
+encode. ``FrameRenderer`` uploads the scene once, sizes the static budgets
+from the initial camera, caches the shadow maps until
+``mark_shadows_dirty()`` and marshals one packed uniform vector per frame.
+On a CUDA device it captures the frame and the shadow pass into CUDA
+graphs (``graph/program.py``; the JAX package's jitted frame and shadow
+programs), once at init and again after every budget change, and a warm
+``render()`` replays the frame's graph without a host sync; on the CPU
+the pass chain runs eagerly.
 
 Texture-space shading (``RenderConfig.texture_space``,
 ``shading/lightchart.py``): the upload lays out and bakes light charts,
@@ -55,6 +59,7 @@ from ..shading import shadow as shadow_mod
 from ..shading.srgb import encode_srgb8
 from ..shading.textured_quad import draw_textured_quad
 from . import uniforms
+from .program import CapturedProgram
 from .uniforms import unpack_params
 
 BACKENDS = ("reference", "cuda")
@@ -925,6 +930,10 @@ class FrameRenderer:
     def __init__(self, scene_host, config: RenderConfig, device=None,
                  backend: str | None = None):
         check_config(config)
+        # the captured programs (CUDA devices only; made at the end of
+        # __init__, once the budgets are known)
+        self._graphs = False
+        self._frame_prog = self._shadow_prog = None
         self.device = resolve_device(device)
         backend = backend or "cuda"
         if backend not in BACKENDS:
@@ -1033,6 +1042,87 @@ class FrameRenderer:
             self.scene_dev.update(up)
         if tune and not tuned:
             self._save_tuned_now()   # estimator results; re-tunes update it
+        # the frame's one host->device input: the packed uniform, uploaded
+        # into this tensor each frame (the programs read it in place)
+        u0 = self.uniform_for_camera()
+        self._u = torch.zeros(u0.shape, dtype=torch.float32,
+                              device=self.device)
+        self._upload_uniform(u0)
+        # the captured programs' captures and replays (CUDA devices)
+        self.program_counts = {"frame_captures": 0, "frame_replays": 0,
+                               "shadow_captures": 0, "shadow_replays": 0}
+        if self.device.type == "cuda":
+            # the counterpart of the JAX package's _start_prewarm: both
+            # programs are captured here, so the first render() replays
+            self._stream = torch.cuda.Stream(self.device)
+            if self.n_shadows > 0:
+                maps, _ = self._shadow_program().outputs
+                # the pack the frame program reads; each shadow replay
+                # copies its maps in (zeros until the first one)
+                self._shadow_maps = shadow_mod.ShadowPack(
+                    *(torch.zeros_like(t) for t in maps))
+            self._graphs = True
+            self._rebuild_frame_program()
+
+    @property
+    def config(self) -> RenderConfig:
+        return self._config
+
+    @config.setter
+    def config(self, cfg: RenderConfig) -> None:
+        # a new config recaptures the frame program, as the JAX package
+        # re-jits its frame function (the controller's re-tunes, the tuned
+        # record, a caller's assignment)
+        self._config = cfg
+        if self._graphs and cfg != self._frame_prog.key:
+            self._rebuild_frame_program()
+
+    def _frame_fn(self):
+        """``render_frame`` with the renderer's static state bound: the
+        function the frame program captures."""
+        cfg = self.config
+        return lambda: render_frame(
+            self.scene_dev, self._u, self._shadow_maps, cfg, self.n_shadows,
+            self.backend, self._has_translucent, self._slots_used,
+            shadow_lights=self._shadow_lights, has_mask=self._has_mask,
+            alpha_is_factor=self._alpha_is_factor)
+
+    def _rebuild_frame_program(self) -> None:
+        """Capture the frame at the current config and budgets: the
+        counterpart of the JAX package's ``_rebuild_frame_fn``. The old
+        graph and its pool are released first; frames it already queued
+        stay valid, since the stream runs them before anything queued
+        after (the capture's warm-up included)."""
+        self._frame_prog = None
+        self._frame_prog = CapturedProgram(self._frame_fn(), self.device,
+                                           self._stream, key=self.config)
+        self.program_counts["frame_captures"] += 1
+
+    def _shadow_program(self) -> CapturedProgram:
+        """The shadow pass captured at the current shadow budget and
+        extent (the JAX package's ``_rebuild_shadow_fn``), recaptured when
+        either changes."""
+        key = (self._shadow_budget_val, self.config.shadow_extent)
+        if self._shadow_prog is None or self._shadow_prog.key != key:
+            self._shadow_prog = None
+            cfg, budget = self.config, self._shadow_budget_val
+            self._shadow_prog = CapturedProgram(
+                lambda: render_shadow_pass(
+                    self.scene_dev, self._u, cfg, self.n_shadows,
+                    self.backend, max_pairs=budget, return_overflow=True),
+                self.device, self._stream, key=key)
+            self.program_counts["shadow_captures"] += 1
+        return self._shadow_prog
+
+    def program_stats(self) -> dict:
+        """The captured programs' measurements (``CapturedProgram.stats``)
+        and ``program_counts``."""
+        out = dict(self.program_counts)
+        for name, prog in (("frame", self._frame_prog),
+                           ("shadow", self._shadow_prog)):
+            if prog is not None:
+                out[name] = prog.stats()
+        return out
 
     def _make_tuned_key(self, dev_np: dict) -> str:
         """Content key of the tuned-config record: scene geometry + the
@@ -1183,13 +1273,28 @@ class FrameRenderer:
         return uniforms.pack_params(self.params_for_camera(view_props),
                                     self.n_shadows)
 
-    def _render_shadows(self, u) -> None:
+    def _upload_uniform(self, u) -> None:
+        """Copy the host uniform into ``self._u`` without a host wait: from
+        a pinned buffer of the caching host allocator, which reuses a buffer
+        only once its copy has run."""
+        host = torch.empty(u.shape, dtype=torch.float32,
+                           pin_memory=self.device.type == "cuda")
+        host.numpy()[...] = u
+        self._u.copy_(host, non_blocking=True)
+
+    def _render_shadows(self) -> None:
         """The cached shadow pass: a blocking overflow check + regrow here
-        is a one-off, not a per-frame stall."""
+        is a one-off, not a per-frame stall. The maps are copied into the
+        pack the frame reads, which keeps its storage."""
         for _ in range(4):
-            maps, sov = render_shadow_pass(
-                self.scene_dev, u, self.config, self.n_shadows, self.backend,
-                max_pairs=self._shadow_budget_val, return_overflow=True)
+            if self._graphs:
+                maps, sov = self._shadow_program().replay()
+                self.program_counts["shadow_replays"] += 1
+            else:
+                maps, sov = render_shadow_pass(
+                    self.scene_dev, self._u, self.config, self.n_shadows,
+                    self.backend, max_pairs=self._shadow_budget_val,
+                    return_overflow=True)
             sov = int(sov)
             if (not self._react_overflow or sov == 0
                     or self._shadow_budget_val >= self._MAX_SHADOW_PAIRS):
@@ -1198,7 +1303,11 @@ class FrameRenderer:
                                           self._shadow_budget_val * 2)
             _log.warning("shadow pair budget overflow (%d dropped): budget "
                          "-> %d, re-rendering", sov, self._shadow_budget_val)
-        self._shadow_maps = maps
+        if self._shadow_maps is None:
+            self._shadow_maps = maps
+        else:
+            for dst, src in zip(self._shadow_maps, maps):
+                dst.copy_(src)
         self.shadow_overflow = sov
         self._shadows_dirty = False
 
@@ -1480,19 +1589,45 @@ class FrameRenderer:
         self._pen_tuned = True
         self._polls_since_pen_retune = 0
 
+    def _bake_tss(self, visibility: bool) -> None:
+        """The texture-space bakes of a shadow-dirty or exposure frame:
+        per-texel PCF visibility from the new maps (``visibility``), then
+        the static light tables, written into the tensors the frame reads
+        (so a captured frame sees them)."""
+        sd = self.scene_dev
+        with record_function("frame.tss_bake"):
+            if visibility:
+                params = unpack_params(self._u, self.n_shadows)
+                geo = {"pos": sd["chart_pos"], "normal": sd["chart_normal"],
+                       "mat_id": sd["chart_mat"][15]}
+                sd["chart_vis"].copy_(lightchart.bake_visibility(
+                    sd, geo, self._shadow_maps, params["shadow_viewproj"],
+                    self._shadow_lights))
+            for k, v in lightchart.static_tables(
+                    sd, self.config, self._baked_exposure).items():
+                sd[k].copy_(v)
+
+    def render_eager(self):
+        """The frame the program replays, dispatched op by op:
+        ``render_frame`` over the renderer's state (the uniform of the last
+        ``render()``, the cached shadow maps, the current budgets). The CPU
+        path of ``render()``; on the card, for comparisons."""
+        return self._frame_fn()()
+
     def render(self, view_props: ViewProperties | None = None):
         """Render one frame: returns (image [H,W,4] uint8 on the device,
-        stats dict of 0-d tensors, see ``render_frame``). Work is queued
-        on the device; ``.cpu()`` fetches the image. The first frame, and
-        the first after ``mark_shadows_dirty()``, also renders the shadow
-        maps. With ``auto_tune_pairs`` the call first polls the counters
-        of earlier frames that have finished (``_poll_overflow``, no host
-        wait), and queues this frame's."""
+        stats dict of 0-d tensors, see ``render_frame``), the frame's own
+        tensors. Work is queued on the device; ``.cpu()`` fetches the
+        image. The first frame, and the first after
+        ``mark_shadows_dirty()``, also renders the shadow maps. With
+        ``auto_tune_pairs`` the call first polls the counters of earlier
+        frames that have finished (``_poll_overflow``, no host wait), and
+        queues this frame's. On a CUDA device the frame is a replay of the
+        captured frame program and a warm frame makes no host sync."""
         if self._react_overflow:
             self._poll_overflow()
-        u = torch.from_numpy(self.uniform_for_camera(view_props)).to(
-            self.device)
-        sd = self.scene_dev
+        self._upload_uniform(self.uniform_for_camera(view_props))
+        bake = False
         if self.config.texture_space:
             # exposure is folded into the static diffuse bake; a change
             # re-bakes it (unless the shadow re-bake below does anyway)
@@ -1500,32 +1635,24 @@ class FrameRenderer:
                  else float(self.scene_host.camera.exposure))
             if e != self._baked_exposure:
                 self._baked_exposure = e
-                if not (self.n_shadows > 0 and self._shadows_dirty):
-                    with record_function("frame.tss_bake"):
-                        sd.update(lightchart.static_tables(sd, self.config,
-                                                           e))
+                bake = True
         if self.n_shadows > 0 and self._shadows_dirty:
-            self._render_shadows(u)
+            self._render_shadows()
             if self.config.texture_space:
-                # bake per-texel PCF visibility from the new maps, then the
-                # static light tables: the frame never gathers PCF windows
-                with record_function("frame.tss_bake"):
-                    params = unpack_params(u, self.n_shadows)
-                    geo = {"pos": sd["chart_pos"],
-                           "normal": sd["chart_normal"],
-                           "mat_id": sd["chart_mat"][15]}
-                    sd["chart_vis"] = lightchart.bake_visibility(
-                        sd, geo, self._shadow_maps,
-                        params["shadow_viewproj"], self._shadow_lights)
-                    sd.update(lightchart.static_tables(
-                        sd, self.config, self._baked_exposure))
-        img, stats = render_frame(
-            sd, u, self._shadow_maps, self.config,
-            self.n_shadows, self.backend, self._has_translucent,
-            self._slots_used, shadow_lights=self._shadow_lights,
-            has_mask=self._has_mask, alpha_is_factor=self._alpha_is_factor)
+                # the frame never gathers PCF windows: bake them per texel
+                self._bake_tss(visibility=True)
+        elif bake:
+            self._bake_tss(visibility=False)
+        if self._graphs:
+            img, stats = self._frame_prog.replay()
+            self.program_counts["frame_replays"] += 1
+        else:
+            img, stats = self.render_eager()
         if self._react_overflow:
             self._queue_stats(stats)
+        if self._graphs:
+            # the next replay overwrites the graph's outputs
+            img, stats = img.clone(), {k: v.clone() for k, v in stats.items()}
         return img, stats
 
 

@@ -67,7 +67,10 @@ K2_ATTRS_B = (2, 4)       # attribute prefixes K2's blend layers interpolate
 
 # launches of the kernels (plain-version runs do not count): the totals,
 # and the same launches by variant: (n_attrs, peel, dual) for K1,
-# ("merged", n_attrs_b) for K2
+# ("merged", n_attrs_b) for K2. A call during a CUDA graph capture launches
+# nothing: ``graph.program.CapturedProgram`` moves the counts of its capture
+# into its own record and adds them back at each replay, which launches
+# the kernels
 launch_counts = {"raster_tile": 0, "merged_tile": 0}
 # other device work of the wrappers, counted apart: the zeroing of a new
 # or grown workspace (a memset, once per device and size)
@@ -226,6 +229,14 @@ def _workspace(lib, dev, n_slots: int, rows: int, layers: int):
     ``helper_counts``)."""
     stream = torch.cuda.current_stream(dev)
     w = _workspaces.get(dev.index)
+    if torch.cuda.is_current_stream_capturing() and (
+            w is None or w.stream != stream or n_slots > w.slots
+            or rows > w.rows
+            or w.keys.numel() < lib.raster_key_words(rows, layers)):
+        # a stream switch or an allocation would be captured into the
+        # graph: run the captured function once on its stream first
+        raise RuntimeError("the split walk's workspace must be sized and "
+                           "owned by the capture stream before a capture")
     if w is None:
         w = _workspaces[dev.index] = _Workspace(stream)
     elif w.stream != stream:
@@ -242,6 +253,38 @@ def _workspace(lib, dev, n_slots: int, rows: int, layers: int):
     if w.keys is None or w.keys.numel() < n_keys:
         w.keys = torch.empty(n_keys, dtype=torch.int64, device=dev)
     return w
+
+
+def workspace_tensors(dev) -> tuple:
+    """The device's workspace tensors as they stand. A captured CUDA
+    graph holds them: its launches keep the pointers, so the memory must
+    outlive the graph even if a later launch grows the workspace."""
+    w = _workspaces.get(torch.device(dev).index)
+    return () if w is None else (w.ints, w.keys)
+
+
+def count_snapshot() -> tuple:
+    """The launch counters as they stand (``launch_counts``,
+    ``variant_counts``)."""
+    return dict(launch_counts), collections.Counter(variant_counts)
+
+
+def counts_since(snap: tuple) -> tuple:
+    """The launches counted since ``snap``, as (totals, by variant)."""
+    totals = {k: launch_counts[k] - snap[0].get(k, 0) for k in launch_counts}
+    return totals, variant_counts - snap[1]
+
+
+def add_counts(delta: tuple, times: int = 1) -> None:
+    """Add ``times`` x a ``counts_since`` delta to the launch counters
+    (negative: take it away)."""
+    totals, by_variant = delta
+    for k, n in totals.items():
+        launch_counts[k] += times * n
+    for k, n in by_variant.items():
+        variant_counts[k] += times * n
+        if not variant_counts[k]:
+            del variant_counts[k]
 
 
 def workspace_bytes() -> int:

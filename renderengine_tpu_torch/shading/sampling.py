@@ -156,7 +156,15 @@ def table_lookup_planar(table: torch.Tensor, idx: torch.Tensor,
                         cols) -> torch.Tensor:
     """``table_lookup`` restricted to ``cols``, channel-leading:
     [len(cols), *idx.shape]."""
-    sub = table[:, list(cols)]
+    # contiguous column runs as slices: a list index would be built on
+    # the host and copied to the device on every call
+    runs, start = [], 0
+    cols = list(cols)
+    for i in range(1, len(cols) + 1):
+        if i == len(cols) or cols[i] != cols[i - 1] + 1:
+            runs.append(table[:, cols[start]:cols[i - 1] + 1])
+            start = i
+    sub = runs[0] if len(runs) == 1 else torch.cat(runs, dim=1)
     return torch.movedim(sub[idx.long()].to(torch.float32), -1, 0)
 
 
@@ -398,7 +406,9 @@ def scatter_row_segments(vals, sel, h: int, w: int, seg_w: int):
                        device=vals.device)
     scat[rows, sel] = vals
     have = torch.zeros((h, ntx), dtype=torch.bool, device=sel.device)
-    have[rows, sel] = True
+    # a device-side True: a Python scalar stored through advanced
+    # indexing is built on the host and copied to the device
+    have[rows, sel] = torch.ones_like(sel, dtype=torch.bool)
     have = have[:, :, None].expand(h, ntx, seg_w)
 
     def unseg(x):

@@ -214,7 +214,10 @@ def compute_shadow_directional(shadow_pack, shadow_transforms, shadow_index,
                               _to_light_clip(m6[f], frag_pos), flp)
     else:
         idx = shadow_index.clamp(0, ns - 1).to(torch.int64)
-        flp = _to_light_clip(shadow_transforms[idx], frag_pos)
+        # a gather, not ``shadow_transforms[idx]``: indexing with a 0-d
+        # tensor reads its value on the host
+        m = shadow_transforms.index_select(0, idx.reshape(1))[0]
+        flp = _to_light_clip(m, frag_pos)
     w = flp[..., 3]
     safe_w = torch.where(w == 0, 1.0, w)
     current = flp[..., 2] / safe_w

@@ -9,19 +9,30 @@ size with the default config that ``chip_smoke.py`` drives (``--opaque``:
 shadows, skybox and translucency off, the first slice's frame; ``--tss``:
 the texture-space headline config, ``texture_space`` +
 ``tss_preshaded_blend`` + ``dither_trilinear`` + ``sky_halfres``),
-renders two warm-up frames (the first also renders the cached shadow
-maps), then runs ``torch.profiler`` over ``--frames`` frames and prints
-one JSON line: per layer span (``frame.tss_spec``, ``frame.setup``,
-``frame.bin_pack``, ``frame.raster`` or ``frame.merged_raster``,
-``frame.shade``, ``frame.mask``, ``frame.sky``, ``frame.peel_raster``,
-``frame.peel_shade``, ``frame.overlay``, ``frame.encode``, named in
-``graph/frame.py``) the
-device ms per frame; the kernels with the most device time; the wall ms
-per frame, the kernel launches per frame and the device busy share (union
-of kernel intervals over the window). It then marks the shadow maps dirty
-and profiles one more frame for the ``frame.shadow`` span (both maps'
-setup, binning, K1 and packing) and, with ``--tss``, ``frame.tss_bake``
-(the visibility bake and the static light tables).
+renders four warm-up frames with a synchronize after each (the first also
+renders the cached shadow maps; the overflow poll consumes their counters,
+and its first re-tunes recapture the frame there, not in the profiled
+window), then runs ``torch.profiler`` twice over ``--frames`` frames and
+prints one JSON line with both, labelled:
+
+- ``eager``: the frame dispatched op by op (``FrameRenderer.render_eager``,
+  the pass chain the card's graph holds), for the per-layer table: per
+  span (``frame.tss_spec``, ``frame.setup``, ``frame.bin_pack``,
+  ``frame.raster`` or ``frame.merged_raster``, ``frame.shade``,
+  ``frame.mask``, ``frame.sky``, ``frame.peel_raster``,
+  ``frame.peel_shade``, ``frame.overlay``, ``frame.encode``, named in
+  ``graph/frame.py``) the device ms per frame. The spans fire only while
+  the pass chain is dispatched, so a replayed frame has none;
+- ``replayed``: warm ``render()`` calls, each a replay of the captured
+  frame program: the frame as it runs (``captures_in_window`` counts the
+  recaptures inside it, which should be 0).
+
+Each gives the kernels with the most device time, the wall ms per frame,
+the kernel launches per frame and the device busy share (union of kernel
+intervals over the window). Last, ``shadow_frame_eager``: one eager
+shadow-dirty frame, for the ``frame.shadow`` span (both maps' setup,
+binning, K1 and packing) and, with ``--tss``, ``frame.tss_bake`` (the
+visibility bake and the static light tables).
 
 ``--trace DIR`` also writes the profiler's Chrome trace there. Needs a
 CUDA card; exits non-zero without one.
@@ -65,7 +76,8 @@ def _union_us(intervals) -> float:
     return total
 
 
-def profiled(renderer, frames: int, trace_dir: str | None) -> dict:
+def profiled(fn, frames: int, trace_dir: str | None) -> dict:
+    """``torch.profiler`` over ``frames`` calls of ``fn`` (a frame)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -73,7 +85,7 @@ def profiled(renderer, frames: int, trace_dir: str | None) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(frames):
-            renderer.render()
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     if trace_dir:
@@ -102,6 +114,24 @@ def profiled(renderer, frames: int, trace_dir: str | None) -> dict:
             "kernel_launches_per_frame": sum(e.count for e in kernels)
             / frames,
             "span_device_ms_per_frame": spans, "top_kernels": top}
+
+
+def eager_dirty_frame(renderer):
+    """One shadow-dirty frame dispatched op by op: the shadow pass, the
+    texture-space bakes, the frame (the renderer's maps stay as they
+    are)."""
+    from ..graph.frame import render_shadow_pass
+
+    def run():
+        if renderer.n_shadows:
+            render_shadow_pass(renderer.scene_dev, renderer._u,
+                               renderer.config, renderer.n_shadows,
+                               renderer.backend,
+                               max_pairs=renderer._shadow_budget_val)
+        if renderer.config.texture_space:
+            renderer._bake_tss(visibility=renderer.n_shadows > 0)
+        renderer.render_eager()
+    return run
 
 
 def main(argv=None) -> None:
@@ -134,15 +164,18 @@ def main(argv=None) -> None:
                           tss_preshaded_blend=True, dither_trilinear=True,
                           sky_halfres=True)
     renderer = FrameRenderer(scene, cfg)
-    for _ in range(2):
+    for _ in range(4):
         renderer.render()
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+    caps = renderer.program_counts["frame_captures"]
     out = {"card": _card(), "width": args.width, "height": args.height,
            "frames": args.frames, "opaque": args.opaque, "tss": args.tss,
-           "profiler": profiled(renderer, args.frames, args.trace)}
-    if renderer.n_shadows:
-        renderer.mark_shadows_dirty()
-        out["shadow_frame_profiler"] = profiled(renderer, 1, None)
+           "eager": profiled(renderer.render_eager, args.frames, args.trace),
+           "replayed": profiled(renderer.render, args.frames, None),
+           "captures_in_window":
+               renderer.program_counts["frame_captures"] - caps,
+           "shadow_frame_eager": profiled(eager_dirty_frame(renderer), 1,
+                                          None)}
     print(json.dumps(out))
 
 

@@ -153,8 +153,11 @@ def test_kernel_refuses_bad_inputs(cuda_device):
 @pytest.mark.gpu
 def test_golden_frame_through_the_kernel(cuda_device):
     name, factory, cfg = goldens.golden_cases()[2]     # bindless_textures
+    # the renderer captures its frame at init (after one warm-up frame,
+    # whose launch counts); render() replays it: one more launch
+    r = FrameRenderer(factory(), cfg, device=cuda_device)
     before = cr.launch_counts["raster_tile"]
-    img, st = FrameRenderer(factory(), cfg, device=cuda_device).render()
+    img, st = r.render()
     assert cr.launch_counts["raster_tile"] == before + 1
     assert int(st["pair_overflow"]) == 0
     frac, mx = goldens.golden_bar(img.cpu().numpy(), goldens.load_golden(name))
@@ -568,3 +571,154 @@ def test_sharded_renderer_on_the_card(cuda_device, tmp_path, backend, world):
         "nccl" if backend == "nccl" else "gloo-host")
     for rk in out["ranks"]:
         assert rk["runs"]["frame"]["launches"].get("(8, False, False)") == 2
+
+
+# --- the captured frame program (graph/program.py) --------------------------
+
+def _graph_cfg(tss: bool):
+    cfg = RenderConfig(width=256, height=128, shadow_extent=1024)
+    if tss:
+        cfg = cfg.replace(debug_views=False, texture_space=True,
+                          tss_preshaded_blend=True, dither_trilinear=True,
+                          sky_halfres=True)
+    return cfg
+
+
+def _orbit(sc, n):
+    """n camera eyes on a short arc around the scene's look-at point."""
+    eye0 = np.asarray(sc.camera.eye, np.float32)
+    target = np.asarray(sc.camera.look_at, np.float32)
+    d = eye0 - target
+    out = []
+    for a in np.linspace(0.0, 0.25, n):
+        c, s_ = np.cos(a), np.sin(a)
+        out.append(target + np.array([c * d[0] - s_ * d[2], d[1],
+                                      s_ * d[0] + c * d[2]], np.float32))
+    return target, out
+
+
+def _overflow_free(st):
+    return not any(int(v) for k, v in st.items() if "overflow" in k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tss", [False, True], ids=["per_pixel", "tss"])
+def test_warm_render_makes_no_sync(cuda_device, tss, monkeypatch):
+    """Once the controller has settled, a warm ``render()`` (the poll, the
+    uniform upload, the replay of the captured frame, the queued counters)
+    runs under ``set_sync_debug_mode("error")``: no host sync, and no
+    frame dispatched op by op."""
+    r = FrameRenderer(_small_sponza(), _graph_cfg(tss))
+    assert r.program_counts["frame_captures"] == 1
+    for _ in range(3):
+        r.render()
+        torch.cuda.synchronize()
+    r.render()
+    before = dict(r.program_counts)
+    eager = []
+    real = fr.render_frame
+    monkeypatch.setattr(fr, "render_frame",
+                        lambda *a, **k: eager.append(1) or real(*a, **k))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            img, st = r.render()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert r.program_counts["frame_replays"] == before["frame_replays"] + 3
+    assert r.program_counts["frame_captures"] == before["frame_captures"]
+    assert not eager
+    assert _overflow_free(st)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tss", [False, True], ids=["per_pixel", "tss"])
+def test_replay_equals_the_eager_frame(cuda_device, tss):
+    """For three camera poses the replayed frame equals ``render_frame``
+    dispatched op by op at the same budgets, byte for byte, with every
+    counter 0; the returned frames are the caller's own (a later replay
+    leaves them as they were)."""
+    sc = _small_sponza()
+    r = FrameRenderer(sc, _graph_cfg(tss))
+    for _ in range(3):
+        r.render()
+        torch.cuda.synchronize()
+    r._react_overflow = False
+    target, eyes = _orbit(sc, 3)
+    kept = []
+    for eye in eyes:
+        sc.camera.set_camera_view(eye, target, np.array([0, 1, 0]))
+        img, st = r.render()
+        eager, est = r.render_eager()
+        assert torch.equal(img, eager)
+        assert _overflow_free(st) and _overflow_free(est)
+        kept.append((img, img.clone()))
+    assert not torch.equal(kept[0][0], kept[-1][0])
+    for img, copy in kept:
+        assert torch.equal(img, copy)
+
+
+@pytest.mark.gpu
+def test_retune_recaptures(cuda_device):
+    """A budget change recaptures the frame program (the controller's
+    growth in the poll and a caller's assignment alike), and the
+    recaptured frame equals its eager frame."""
+    r = FrameRenderer(_small_sponza(), _graph_cfg(False))
+    for _ in range(3):
+        r.render()
+    torch.cuda.synchronize()
+    r.render()
+    torch.cuda.synchronize()
+    caps = r.program_counts["frame_captures"]
+    budget = r.config.raster.pair_budget
+    zero = torch.zeros((), dtype=torch.int64)
+    r._pending_overflow.clear()
+    r._queue_stats({"pair_overflow": zero + 5000,
+                    "pair_tail_overflow": zero,
+                    "blend_pair_overflow": zero})
+    img, _ = r.render()              # the poll grows the pair budget
+    assert r.config.raster.pair_budget > budget
+    assert r.program_counts["frame_captures"] == caps + 1
+    assert r._frame_prog.key == r.config
+    assert torch.equal(img, r.render_eager()[0])
+    r.config = r.config.replace(penumbra_tile_budget=64)
+    assert r.program_counts["frame_captures"] == caps + 2
+    r._react_overflow = False
+    img, _ = r.render()
+    assert torch.equal(img, r.render_eager()[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tss", [False, True], ids=["per_pixel", "tss"])
+def test_dirty_shadow_frame_equals_eager(cuda_device, tss):
+    """``mark_shadows_dirty()``: the next frame replays the shadow program,
+    whose maps land in the pack the frame program reads (and, with TSS,
+    the bakes in the tables it reads), and equals its eager frame."""
+    r = FrameRenderer(_small_sponza(), _graph_cfg(tss))
+    for _ in range(3):
+        r.render()
+    torch.cuda.synchronize()
+    r._react_overflow = False
+    ptrs = tuple(t.data_ptr() for t in r._shadow_maps)
+    shadows = r.program_counts["shadow_replays"]
+    r.mark_shadows_dirty()
+    img, st = r.render()
+    assert r.program_counts["shadow_replays"] == shadows + 1
+    assert tuple(t.data_ptr() for t in r._shadow_maps) == ptrs
+    assert torch.equal(img, r.render_eager()[0])
+    assert _overflow_free(st) and r.shadow_overflow == 0
+
+
+@pytest.mark.gpu
+def test_failed_capture_raises(cuda_device):
+    """A function that reads device data on the host cannot be captured:
+    the capture raises, and the launch counters are as before."""
+    from renderengine_tpu_torch.graph.program import CapturedProgram
+
+    x = torch.ones(4, device=cuda_device)
+    before = cr.count_snapshot()
+    with pytest.raises(RuntimeError):
+        CapturedProgram(lambda: x * float(x.sum()), cuda_device,
+                        torch.cuda.Stream())
+    assert cr.count_snapshot() == before

@@ -31,7 +31,8 @@ print(",".join(names))
 
 # the modules of the second slice (shadows, sky, translucency), the
 # third (texture-space shading), the fifth (the apps and the runtime
-# under them) and the sixth (the sharded renderer)
+# under them), the sixth (the sharded renderer) and the seventh (the
+# captured frame program)
 SLICE_MODULES = ("shading.shadow", "shading.fitting", "shading.skybox",
                  "shading.sampling", "graph.frame", "raster.cuda_raster",
                  "tools.goldens", "tools.profile_frame", "shading.lightchart",
@@ -44,7 +45,8 @@ SLICE_MODULES = ("shading.shadow", "shading.fitting", "shading.skybox",
                  "scene.loader_fbx", "shading.grid", "shading.textured_quad",
                  "shading.ibl", "apps.main_sample", "apps.live_viewer",
                  "apps.project", "apps.editor", "parallel",
-                 "parallel.sharded", "tools.sharded_run")
+                 "parallel.sharded", "tools.sharded_run", "graph.program",
+                 "tools.sync_sites")
 
 
 def test_port_modules_import_no_jax():
