@@ -66,7 +66,17 @@ Sponza (260k triangles, 200 textures of 512^2), checking their output:
   graph pools' bytes, the warm frame ms replayed against eager (median of
   10 each, alternating), ``torch.profiler``'s busy share and kernels a
   frame over replays and over one eager frame, and ``RenderLoop`` against
-  ``render()`` + ``.cpu()``;
+  ``render()`` + ``.cpu()``. For the texture-space headline it also
+  captures the visibility and light-table bakes at init (the JAX
+  ``_vis_fn`` and ``_ld_fn``): an exposure-change frame replays the
+  table program and the frame under ``set_sync_debug_mode("error")``, a
+  shadow-dirty frame replays the shadow, visibility, table and frame
+  programs with one synchronizing call, the shadow pass's overflow read
+  (``tools.sync_sites``); both equal the bakes and the frame dispatched
+  op by op, byte for byte; it prints both kinds of frame replayed
+  against eager (median of 5 each, alternating), the host ms of the
+  dirty frame's shadow refit, and the bake programs' capture and
+  instantiate ms and pool bytes;
 - the sharded path (phase sharded, ``parallel.sharded.ShardedRenderer``
   through ``tools.sharded_run``): 2 rank processes on the one card over
   gloo (NCCL puts no two ranks on one device; the gathers go through
@@ -77,8 +87,15 @@ Sponza (260k triangles, 200 textures of 512^2), checking their output:
   gathered frame must equal the single-card frame and the sharded shadow
   maps (each rank rasters half the triangles, merged by
   ``all_reduce(MIN)``) the single-card ones, byte for byte, every
-  counter 0; then 2 headline frames at a world of 1 over NCCL through
-  the same code. Phases k1-band and k2-band first hold K1 (the opaque
+  counter 0, both ranks eager (gloo's collectives run on the host);
+  then both configs at a world of 1 over NCCL through the same code,
+  where the renderer captures the band frame (the vertex and band
+  gathers, the reductions), the sharded shadow pass and the TSS bakes
+  at init: 3 frames (the 2 warm ones under ``set_sync_debug_mode
+  ("error")``), equal to the single card's, one more with 0
+  synchronizing calls, 2 replayed frames against 2 eager ones in turns
+  (equal), and a shadow-dirty frame with one call, the overflow read,
+  equal to the warm frame. Phases k1-band and k2-band first hold K1 (the opaque
   pass at 8 attributes, the dual peel) and K2 at a launch from the
   mid-tile row y0 = 540 and at rank 1's launch shapes (y0 = 536, 544
   rows) to their plain versions and time the latter; their rows'
@@ -1556,8 +1573,12 @@ def main() -> None:
     phase = "graph-path"
     try:
         import copy
+        import inspect
 
+        from renderengine_tpu_torch.scene.camera import ViewProperties
+        from renderengine_tpu_torch.shading import fitting
         from renderengine_tpu_torch.tools import profile_frame
+        from renderengine_tpu_torch.tools.sync_sites import sync_sites
         t_graph = time.time()
         graph_res = {}
         cam0 = copy.deepcopy(scene.camera)
@@ -1582,6 +1603,124 @@ def main() -> None:
                                       "device_busy_share",
                                       "kernel_launches_per_frame")} | {
                 "top_kernels": p["top_kernels"][:5]}
+
+        def eager_bakes_frame(r, visibility):
+            # the TSS bakes and the frame dispatched op by op over the
+            # renderer's state (uniform, shadow pack)
+            fr.bake_tss(r.tss_bakes(visibility))
+            return r.render_eager()[0]
+
+        def alternate_ms(replayed, eager, n=5):
+            # host ms of n frames replayed and n dispatched op by op, in
+            # turns, frame i of each alike; each call ends in a synchronize
+            acc = {"replayed": [], "eager": []}
+            for i in range(n):
+                for mode, frame in (("replayed", replayed),
+                                    ("eager", eager)):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    frame(i)
+                    torch.cuda.synchronize()
+                    acc[mode].append((time.perf_counter() - t0) * 1e3)
+            return {"replayed_median": statistics.median(acc["replayed"]),
+                    "eager_median": statistics.median(acc["eager"]), **acc}
+
+        def tss_bake_checks(r):
+            # the bake programs (the JAX _vis_fn and _ld_fn): an exposure
+            # change replays the tables under sync debug mode "error", a
+            # shadow-dirty frame makes one synchronizing call (the shadow
+            # pass's overflow read); both equal the eager bakes' frame;
+            # then each kind of frame replayed against eager, 5 each
+            out = {}
+            react, r._react_overflow = r._react_overflow, False
+            e0 = float(scene.camera.exposure)
+
+            def at(scale):
+                vp = ViewProperties.from_camera(scene.camera)
+                vp.exposure = e0 * scale
+                return vp
+
+            torch.cuda.synchronize()
+            p0 = dict(r.program_counts)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                img, st = r.render(at(1.5))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            out["exposure"] = {
+                "sync_calls": 0, "replays": {
+                    k: v for k, v in counts_delta(
+                        p0, r.program_counts).items() if v},
+                "equal": torch.equal(img, eager_bakes_frame(r, False)),
+                "counters": over(st)}
+            r.render()              # back at the camera's exposure
+            p0 = dict(r.program_counts)
+            r.mark_shadows_dirty()
+            got = []
+            sites = sync_sites(lambda: got.append(r.render()))
+            img, st = got[0]
+            lines, first = inspect.getsourcelines(
+                fr.FrameRenderer._render_shadows)
+            line = first + next(i for i, t in enumerate(lines)
+                                if "int(sov)" in t)
+            out["dirty"] = {
+                "sync": sites, "overflow_read_line": line,
+                "replays": {k: v for k, v in counts_delta(
+                    p0, r.program_counts).items() if v},
+                "equal": torch.equal(img, eager_bakes_frame(r, True)),
+                "counters": over(st), "shadow_overflow": r.shadow_overflow}
+            log(f"phase graph-path [tss bakes]: exposure {out['exposure']}; "
+                f"dirty {out['dirty']}")
+            want = {"exposure": {"tables_replays": 1, "frame_replays": 1},
+                    "dirty": {"shadow_replays": 1, "vis_replays": 1,
+                              "tables_replays": 1, "frame_replays": 1}}
+            for kind in want:
+                c = out[kind]
+                if (not c["equal"] or any(c["counters"].values())
+                        or c["replays"] != want[kind]):
+                    raise AssertionError(f"TSS {kind} frame: {c}")
+            site = next(iter(sites["sites"]), "")
+            if sites["calls"] != 1 or not site.startswith(
+                    f"/graph/frame.py:{line}") or r.shadow_overflow:
+                raise AssertionError(f"TSS dirty frame syncs: {sites}")
+            # each replayed exposure differs from the one before it; the
+            # eager frame i bakes the tables at the replayed frame i's
+            def scale(i):
+                return 1.5 if i % 2 == 0 else 1.0
+
+            out["exposure_frame_ms"] = alternate_ms(
+                lambda i: r.render(at(scale(i))),
+                lambda i: profile_frame.eager_frame(r, at(scale(i))))
+
+            def dirty(i):
+                r.mark_shadows_dirty()
+                r.render()
+
+            out["dirty_frame_ms"] = alternate_ms(
+                dirty, lambda i: profile_frame.eager_frame(r, dirty=True))
+            # the dirty frame's host-side shadow refit (the light fit that
+            # precedes the shadow pass; the card idles through it)
+            refit = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                fitting.shadow_transforms_for_scene(scene)
+                refit.append((time.perf_counter() - t0) * 1e3)
+            out["shadow_refit_host_ms"] = {
+                "median": statistics.median(refit), "all": refit}
+            ps = r.program_stats()
+            out["programs"] = {k: ps[k] for k in ("vis", "tables")}
+            r.render()
+            r._react_overflow = react
+            log(f"phase graph-path [tss bakes]: exposure-change frame ms "
+                f"replayed {out['exposure_frame_ms']['replayed_median']:.2f}"
+                f" vs eager {out['exposure_frame_ms']['eager_median']:.2f}; "
+                f"shadow-dirty frame ms replayed "
+                f"{out['dirty_frame_ms']['replayed_median']:.2f} vs eager "
+                f"{out['dirty_frame_ms']['eager_median']:.2f} (median of 5 "
+                f"each, alternating), of which the host's shadow refit "
+                f"{out['shadow_refit_host_ms']['median']:.2f}; bake programs "
+                f"{out['programs']}; {card}")
+            return out
 
         app_cfg_pp = RenderConfig(width=SPONZA_W, height=SPONZA_H,
                                   shadow_extent=2048, chart_density=0.5)
@@ -1624,7 +1763,7 @@ def main() -> None:
             warm = counts_delta(p0, r.program_counts)
             got = {str(k): n for k, n in cr.variant_counts.items()}
             want = {str(k): 3 * n
-                    for k, n in r._frame_prog.launches[1].items()}
+                    for k, n in r._programs.progs["frame"].launches[1].items()}
             res["warm"] = {"sync_calls": 0, "renders": warm,
                            "render_frame_calls": len(eager_calls),
                            "launches": got, "counters": over(st)}
@@ -1689,6 +1828,8 @@ def main() -> None:
                     or not res["dirty_shadows"]["pack_kept"]:
                 raise AssertionError(f"{tag}: a replayed frame differs from "
                                      f"its eager frame or counted over")
+            if gcfg.texture_space:
+                res["tss_bakes"] = tss_bake_checks(r)
             # warm frame ms, replayed against eager, alternating
             rep_ms, eag_ms = [], []
             for _ in range(10):
@@ -2109,10 +2250,15 @@ def main() -> None:
                        ref["frame_ms"]),
                    "init_s": [r["init_s"] for r in recs],
                    "launches": [r["launches"] for r in recs],
+                   "mode": [r["programs"]["mode"] for r in recs],
+                   "sync_calls_warm_frame": [r["sync"]["calls"]
+                                             for r in recs],
                    "counters": over}
             log(f"phase sharded [{name}, world {world}, "
                 f"{res['transport']}]: {res}")
-            if diff or not maps_eq or any(any(o.values()) for o in over):
+            want_mode = "captured" if res["transport"] == "nccl" else "eager"
+            if diff or not maps_eq or any(any(o.values()) for o in over) \
+                    or any(m != want_mode for m in res["mode"]):
                 raise AssertionError(f"{name}: the sharded frame differs "
                                      f"from the single card's: {res}")
             return res
@@ -2143,13 +2289,58 @@ def main() -> None:
             del out
             if not dist.is_nccl_available():
                 raise AssertionError("this torch has no NCCL")
+            # a world of 1 over NCCL: the band frame, the shadow pass and
+            # the TSS bakes captured at init; warm frames under sync debug
+            # mode "error", one more counted (0 calls), 2 replayed frames
+            # against 2 eager in turns, and a shadow-dirty frame (one call,
+            # the overflow read) equal to the warm frame
             t1 = time.time()
+            nccl = {"sync_error": True, "eager_frames": 2, "dirty_frame": True}
             out = sharded_run.launch(
                 {"dist_backend": "nccl", "world": 1, "devices": ["cuda:0"],
-                 "threads": 2, "runs": {"tss_headline": sh_run(tss_ref, 2)}},
-                sh_dir / "nccl", timeout_s=300)
+                 "threads": 2,
+                 "runs": {"per_pixel": sh_run(pp_ref, 3) | nccl,
+                          "tss_headline": sh_run(tss_ref, 3) | nccl}},
+                sh_dir / "nccl", timeout_s=600)
             log(f"phase sharded: NCCL world 1 in {time.time() - t1:.1f} s")
-            sharded_res["tss_headline_nccl_1"] = check(out, "tss_headline", 1)
+            for name in refs:
+                res = check(out, name, 1)
+                rec = out["ranks"][0]["runs"][name]
+                progs = rec["programs"]
+                names = ["frame", "shadow"] + (
+                    ["vis", "tables"] if name == "tss_headline" else [])
+                res["captured"] = {
+                    "mode": progs["mode"],
+                    "programs": {n: progs.get(n) for n in names},
+                    "replays": {n: progs[f"{n}_replays"] for n in names},
+                    "sync_warm": rec["sync"], "sync_dirty": rec["sync_dirty"],
+                    "eager_equal": rec["eager_equal"],
+                    "dirty_equal": torch.equal(rec["frame_dirty"],
+                                               rec["frame"]),
+                    "dirty_counters": {k: v for k, v in
+                                       rec["stats_dirty"].items()
+                                       if "overflow" in k}
+                    | {"shadow_overflow": rec["shadow_overflow_dirty"]}}
+                res["frame_ms_replayed_vs_eager"] = {
+                    "replayed": rec["replayed_ms"], "eager": rec["eager_ms"],
+                    "replayed_median": statistics.median(rec["replayed_ms"]),
+                    "eager_median": statistics.median(rec["eager_ms"]),
+                    "single_card_replayed_median": graph_res[name][
+                        "frame_ms"]["replayed_median"]}
+                c = res["captured"]
+                log(f"phase sharded [{name}, world 1, nccl, captured]: {c}; "
+                    f"frame ms {res['frame_ms_replayed_vs_eager']}; {card}")
+                if (c["mode"] != "captured"
+                        or any(p is None or p["replays"] < 1
+                               for p in c["programs"].values())
+                        or any(progs[f"{n}_captures"] != 1 for n in names)
+                        or c["sync_warm"]["calls"]
+                        or c["sync_dirty"]["calls"] != 1
+                        or not c["eager_equal"] or not c["dirty_equal"]
+                        or any(c["dirty_counters"].values())):
+                    raise AssertionError(f"{name}: the NCCL world of 1 did "
+                                         f"not replay as expected: {c}")
+                sharded_res[f"{name}_nccl_1"] = res
             del out
         finally:
             shutil.rmtree(sh_dir, ignore_errors=True)

@@ -8,11 +8,12 @@ function composition over tensors: shadow depth pass -> opaque base pass
 encode. ``FrameRenderer`` uploads the scene once, sizes the static budgets
 from the initial camera, caches the shadow maps until
 ``mark_shadows_dirty()`` and marshals one packed uniform vector per frame.
-On a CUDA device it captures the frame and the shadow pass into CUDA
-graphs (``graph/program.py``; the JAX package's jitted frame and shadow
-programs), once at init and again after every budget change, and a warm
-``render()`` replays the frame's graph without a host sync; on the CPU
-the pass chain runs eagerly.
+On a CUDA device it captures the frame, the shadow pass and, with
+texture-space shading, the visibility and light-table bakes into CUDA
+graphs (``graph/program.py``; the JAX package's jitted frame, shadow,
+``_vis_fn`` and ``_ld_fn`` programs), once at init and again when what
+they bind changes, and a warm ``render()`` replays the frame's graph
+without a host sync; on the CPU the pass chain runs eagerly.
 
 Texture-space shading (``RenderConfig.texture_space``,
 ``shading/lightchart.py``): the upload lays out and bakes light charts,
@@ -59,7 +60,7 @@ from ..shading import shadow as shadow_mod
 from ..shading.srgb import encode_srgb8
 from ..shading.textured_quad import draw_textured_quad
 from . import uniforms
-from .program import CapturedProgram
+from .program import Programs
 from .uniforms import unpack_params
 
 BACKENDS = ("reference", "cuda")
@@ -905,6 +906,57 @@ def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
     return img, stats
 
 
+def bake_tss_visibility(scene, shadow_maps, u, n_shadows: int,
+                        shadow_lights) -> None:
+    """The per-texel PCF visibility bake of a shadow-dirty frame (the JAX
+    ``FrameRenderer._vis_fn``) from the packed maps and the uniform ``u``'s
+    shadow transforms, written into ``scene["chart_vis"]``."""
+    params = unpack_params(u, n_shadows)
+    geo = {"pos": scene["chart_pos"], "normal": scene["chart_normal"],
+           "mat_id": scene["chart_mat"][15]}
+    scene["chart_vis"].copy_(lightchart.bake_visibility(
+        scene, geo, shadow_maps, params["shadow_viewproj"], shadow_lights))
+
+
+def bake_tss_tables(scene, config: RenderConfig, u) -> None:
+    """The static light tables (the JAX ``_ld_fn``) at the exposure in the
+    uniform ``u``, written into ``chart_ld`` / ``chart_base``. The exposure
+    is read on the device, so one captured program serves every exposure,
+    as JAX's traced argument does; the tables equal those of the Python
+    float (``f32(e) * ld``)."""
+    for k, v in lightchart.static_tables(
+            scene, config, unpack_params(u, 0)["exposure"]).items():
+        scene[k].copy_(v)
+
+
+def tss_bakes(scene, u, shadow_maps, n_shadows: int, shadow_lights,
+              config: RenderConfig, visibility: bool) -> list:
+    """(program name, key, function) of the texture-space bakes of a
+    shadow-dirty frame (``visibility``) or an exposure frame, over a
+    renderer's device state: each writes into the tables of ``scene`` that
+    the frame reads, and its key is what it binds."""
+    out = []
+    if visibility:
+        out.append(("vis", (config.shadow_extent, shadow_lights),
+                    lambda: bake_tss_visibility(scene, shadow_maps, u,
+                                                n_shadows, shadow_lights)))
+    out.append(("tables", (config.tss_preshaded, config.tss_preshaded_blend),
+                lambda: bake_tss_tables(scene, config, u)))
+    return out
+
+
+def bake_tss(bakes, programs=None) -> None:
+    """Run the bakes of ``tss_bakes``: as replays of ``programs`` (captured
+    here if their key changed), or op by op without them."""
+    with record_function("frame.tss_bake"):
+        for name, key, fn in bakes:
+            if programs is None:
+                fn()
+            else:
+                programs.get(name, key, fn)
+                programs.replay(name)
+
+
 class FrameRenderer:
     """Uploads the scene once and marshals host state into device args.
 
@@ -933,8 +985,9 @@ class FrameRenderer:
         # the captured programs (CUDA devices only; made at the end of
         # __init__, once the budgets are known)
         self._graphs = False
-        self._frame_prog = self._shadow_prog = None
         self.device = resolve_device(device)
+        self._programs = Programs(self.device,
+                                  ("frame", "shadow", "vis", "tables"))
         backend = backend or "cuda"
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
@@ -1047,22 +1100,23 @@ class FrameRenderer:
         u0 = self.uniform_for_camera()
         self._u = torch.zeros(u0.shape, dtype=torch.float32,
                               device=self.device)
-        self._upload_uniform(u0)
-        # the captured programs' captures and replays (CUDA devices)
-        self.program_counts = {"frame_captures": 0, "frame_replays": 0,
-                               "shadow_captures": 0, "shadow_replays": 0}
+        uniforms.upload(self._u, u0)
         if self.device.type == "cuda":
-            # the counterpart of the JAX package's _start_prewarm: both
-            # programs are captured here, so the first render() replays
-            self._stream = torch.cuda.Stream(self.device)
+            # the counterpart of the JAX package's _start_prewarm: every
+            # program is captured here, so the first render() replays
             if self.n_shadows > 0:
                 maps, _ = self._shadow_program().outputs
                 # the pack the frame program reads; each shadow replay
                 # copies its maps in (zeros until the first one)
                 self._shadow_maps = shadow_mod.ShadowPack(
                     *(torch.zeros_like(t) for t in maps))
+            if config.texture_space:
+                # their warm-ups bake from the zero pack; the first
+                # render() is shadow-dirty and bakes again before its frame
+                for name, key, fn in self.tss_bakes(self.n_shadows > 0):
+                    self._programs.get(name, key, fn)
             self._graphs = True
-            self._rebuild_frame_program()
+            self._programs.get("frame", self.config, self._frame_fn())
 
     @property
     def config(self) -> RenderConfig:
@@ -1074,8 +1128,13 @@ class FrameRenderer:
         # re-jits its frame function (the controller's re-tunes, the tuned
         # record, a caller's assignment)
         self._config = cfg
-        if self._graphs and cfg != self._frame_prog.key:
-            self._rebuild_frame_program()
+        if self._graphs:
+            self._programs.get("frame", cfg, self._frame_fn())
+
+    @property
+    def program_counts(self) -> dict:
+        """Captures and replays of each captured program (CUDA devices)."""
+        return self._programs.counts
 
     def _frame_fn(self):
         """``render_frame`` with the renderer's static state bound: the
@@ -1087,42 +1146,31 @@ class FrameRenderer:
             shadow_lights=self._shadow_lights, has_mask=self._has_mask,
             alpha_is_factor=self._alpha_is_factor)
 
-    def _rebuild_frame_program(self) -> None:
-        """Capture the frame at the current config and budgets: the
-        counterpart of the JAX package's ``_rebuild_frame_fn``. The old
-        graph and its pool are released first; frames it already queued
-        stay valid, since the stream runs them before anything queued
-        after (the capture's warm-up included)."""
-        self._frame_prog = None
-        self._frame_prog = CapturedProgram(self._frame_fn(), self.device,
-                                           self._stream, key=self.config)
-        self.program_counts["frame_captures"] += 1
-
-    def _shadow_program(self) -> CapturedProgram:
+    def _shadow_program(self):
         """The shadow pass captured at the current shadow budget and
         extent (the JAX package's ``_rebuild_shadow_fn``), recaptured when
         either changes."""
-        key = (self._shadow_budget_val, self.config.shadow_extent)
-        if self._shadow_prog is None or self._shadow_prog.key != key:
-            self._shadow_prog = None
-            cfg, budget = self.config, self._shadow_budget_val
-            self._shadow_prog = CapturedProgram(
-                lambda: render_shadow_pass(
-                    self.scene_dev, self._u, cfg, self.n_shadows,
-                    self.backend, max_pairs=budget, return_overflow=True),
-                self.device, self._stream, key=key)
-            self.program_counts["shadow_captures"] += 1
-        return self._shadow_prog
+        cfg, budget = self.config, self._shadow_budget_val
+        return self._programs.get(
+            "shadow", (budget, cfg.shadow_extent),
+            lambda: render_shadow_pass(
+                self.scene_dev, self._u, cfg, self.n_shadows, self.backend,
+                max_pairs=budget, return_overflow=True))
+
+    def tss_bakes(self, visibility: bool) -> list:
+        """The texture-space bakes over this renderer's state (module
+        ``tss_bakes``): the functions its programs capture, and run op by
+        op, the eager bakes."""
+        return tss_bakes(self.scene_dev, self._u, self._shadow_maps,
+                         self.n_shadows, self._shadow_lights, self.config,
+                         visibility)
 
     def program_stats(self) -> dict:
-        """The captured programs' measurements (``CapturedProgram.stats``)
-        and ``program_counts``."""
-        out = dict(self.program_counts)
-        for name, prog in (("frame", self._frame_prog),
-                           ("shadow", self._shadow_prog)):
-            if prog is not None:
-                out[name] = prog.stats()
-        return out
+        """The captured programs' measurements (``CapturedProgram.stats``),
+        their captures and replays, and the mode: ``captured`` (CUDA
+        devices) or ``eager``."""
+        return {"mode": "captured" if self._graphs else "eager",
+                **self._programs.stats()}
 
     def _make_tuned_key(self, dev_np: dict) -> str:
         """Content key of the tuned-config record: scene geometry + the
@@ -1273,23 +1321,14 @@ class FrameRenderer:
         return uniforms.pack_params(self.params_for_camera(view_props),
                                     self.n_shadows)
 
-    def _upload_uniform(self, u) -> None:
-        """Copy the host uniform into ``self._u`` without a host wait: from
-        a pinned buffer of the caching host allocator, which reuses a buffer
-        only once its copy has run."""
-        host = torch.empty(u.shape, dtype=torch.float32,
-                           pin_memory=self.device.type == "cuda")
-        host.numpy()[...] = u
-        self._u.copy_(host, non_blocking=True)
-
     def _render_shadows(self) -> None:
         """The cached shadow pass: a blocking overflow check + regrow here
         is a one-off, not a per-frame stall. The maps are copied into the
         pack the frame reads, which keeps its storage."""
         for _ in range(4):
             if self._graphs:
-                maps, sov = self._shadow_program().replay()
-                self.program_counts["shadow_replays"] += 1
+                self._shadow_program()
+                maps, sov = self._programs.replay("shadow")
             else:
                 maps, sov = render_shadow_pass(
                     self.scene_dev, self._u, self.config, self.n_shadows,
@@ -1589,24 +1628,6 @@ class FrameRenderer:
         self._pen_tuned = True
         self._polls_since_pen_retune = 0
 
-    def _bake_tss(self, visibility: bool) -> None:
-        """The texture-space bakes of a shadow-dirty or exposure frame:
-        per-texel PCF visibility from the new maps (``visibility``), then
-        the static light tables, written into the tensors the frame reads
-        (so a captured frame sees them)."""
-        sd = self.scene_dev
-        with record_function("frame.tss_bake"):
-            if visibility:
-                params = unpack_params(self._u, self.n_shadows)
-                geo = {"pos": sd["chart_pos"], "normal": sd["chart_normal"],
-                       "mat_id": sd["chart_mat"][15]}
-                sd["chart_vis"].copy_(lightchart.bake_visibility(
-                    sd, geo, self._shadow_maps, params["shadow_viewproj"],
-                    self._shadow_lights))
-            for k, v in lightchart.static_tables(
-                    sd, self.config, self._baked_exposure).items():
-                sd[k].copy_(v)
-
     def render_eager(self):
         """The frame the program replays, dispatched op by op:
         ``render_frame`` over the renderer's state (the uniform of the last
@@ -1622,11 +1643,14 @@ class FrameRenderer:
         ``mark_shadows_dirty()``, also renders the shadow maps. With
         ``auto_tune_pairs`` the call first polls the counters of earlier
         frames that have finished (``_poll_overflow``, no host wait), and
-        queues this frame's. On a CUDA device the frame is a replay of the
-        captured frame program and a warm frame makes no host sync."""
+        queues this frame's. On a CUDA device the frame, and the bakes of
+        a shadow-dirty or exposure-change TSS frame, are replays of
+        captured programs: a warm frame and an exposure-change frame make
+        no host sync, a shadow-dirty frame one (the shadow pass's overflow
+        read, as in the JAX package)."""
         if self._react_overflow:
             self._poll_overflow()
-        self._upload_uniform(self.uniform_for_camera(view_props))
+        uniforms.upload(self._u, self.uniform_for_camera(view_props))
         bake = False
         if self.config.texture_space:
             # exposure is folded into the static diffuse bake; a change
@@ -1636,16 +1660,16 @@ class FrameRenderer:
             if e != self._baked_exposure:
                 self._baked_exposure = e
                 bake = True
+        progs = self._programs if self._graphs else None
         if self.n_shadows > 0 and self._shadows_dirty:
             self._render_shadows()
             if self.config.texture_space:
                 # the frame never gathers PCF windows: bake them per texel
-                self._bake_tss(visibility=True)
+                bake_tss(self.tss_bakes(True), progs)
         elif bake:
-            self._bake_tss(visibility=False)
+            bake_tss(self.tss_bakes(False), progs)
         if self._graphs:
-            img, stats = self._frame_prog.replay()
-            self.program_counts["frame_replays"] += 1
+            img, stats = self._programs.replay("frame")
         else:
             img, stats = self.render_eager()
         if self._react_overflow:

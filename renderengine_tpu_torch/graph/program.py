@@ -8,7 +8,16 @@ counterpart here is a CUDA graph: the pass chain is captured once per
 config and budget, and every warm frame replays it. Its inputs are tensors
 that outlive the graph (the scene, the uniform, the shadow pack), read at
 their addresses; its outputs are tensors of the graph's private memory
-pool that each replay overwrites.
+pool that each replay overwrites. The texture-space bakes (the JAX
+``_vis_fn`` and ``_ld_fn``) are programs too, which write into the
+tables the frame reads and return nothing.
+
+A program may hold NCCL collectives (the sharded renderer's band frame
+and shadow pass): the process group runs each on its own stream, joined
+to the capture stream by events, which the capture records as the
+graph's fork and join; the warm-up's collectives run eagerly first, so
+the communicator exists before the capture. Every rank must capture and
+replay the same programs in the same order.
 """
 
 from __future__ import annotations
@@ -94,4 +103,46 @@ class CapturedProgram:
                 "launches": {str(k): n for k, n in self.launches[1].items()}}
 
 
-__all__ = ["CapturedProgram"]
+class Programs:
+    """A renderer's captured programs, by name. ``get`` captures one when
+    first asked and again when its key (what it binds: config fields,
+    budgets) changes, as the JAX package re-jits a function on new static
+    arguments; the old graph and its pool are released first, and frames
+    it already queued stay valid (the capture stream runs them first).
+    All of them capture on one stream, made at the first capture.
+    ``counts`` holds each program's captures and replays."""
+
+    def __init__(self, device, names):
+        self.device = torch.device(device)
+        self.stream = None
+        self.progs = dict.fromkeys(names)
+        self.counts = {f"{n}_{what}": 0 for n in names
+                       for what in ("captures", "replays")}
+
+    def get(self, name: str, key, fn) -> CapturedProgram:
+        """The program ``name`` at ``key``, capturing ``fn`` if it has
+        none or another key."""
+        prog = self.progs[name]
+        if prog is None or prog.key != key:
+            if self.stream is None:
+                self.stream = torch.cuda.Stream(self.device)
+            self.progs[name] = None
+            self.progs[name] = prog = CapturedProgram(
+                fn, self.device, self.stream, key=key)
+            self.counts[f"{name}_captures"] += 1
+        return prog
+
+    def replay(self, name: str):
+        """Replay the program ``name`` (see ``CapturedProgram.replay``)."""
+        self.counts[f"{name}_replays"] += 1
+        return self.progs[name].replay()
+
+    def stats(self) -> dict:
+        """``counts`` and each captured program's ``stats()``."""
+        out = dict(self.counts)
+        out.update((n, p.stats()) for n, p in self.progs.items()
+                   if p is not None)
+        return out
+
+
+__all__ = ["CapturedProgram", "Programs"]

@@ -32,6 +32,17 @@ def pack_params(params: dict, n_shadows: int) -> np.ndarray:
     return u
 
 
+def upload(dst: torch.Tensor, u: np.ndarray) -> None:
+    """Copy the host uniform ``u`` into the device tensor ``dst`` (which
+    the captured programs read in place) without a host wait: from a
+    pinned buffer of the caching host allocator, which reuses a buffer
+    only once its copy has run."""
+    host = torch.empty(u.shape, dtype=torch.float32,
+                       pin_memory=dst.device.type == "cuda")
+    host.numpy()[...] = u
+    dst.copy_(host, non_blocking=True)
+
+
 def unpack_params(u: torch.Tensor, n_shadows: int) -> dict:
     params = {
         "view": u[0:16].reshape(4, 4),

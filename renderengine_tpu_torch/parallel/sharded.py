@@ -26,6 +26,17 @@ CUDA device its gathers go through host tensors (``Mesh.transport`` is
 then ``"gloo-host"``). Every collective runs whatever the world size, so
 a world of 1 still launches its backend.
 
+The transport decides how a frame runs. Over NCCL the collectives run on
+the card, so ``ShardedRenderer`` captures the band frame, the sharded
+shadow pass and the texture-space bakes into CUDA graphs at init, on
+every rank in the same order (the JAX package's jitted ``_fn`` and
+``_shadow_fn``), and every rank replays them in lockstep; a warm frame
+makes no host sync, and a capture that fails raises. Only a world of 1
+over NCCL has been run captured (on one card, NCCL's one-rank path): a
+capture across several NCCL ranks, and its fork and join on the group's
+stream across ranks, has not been run. Over gloo the collectives run on
+the host and cannot be captured: the frame is dispatched op by op.
+
 Exactness: the gathered frame equals the single-card frame byte for byte
 given the same budgets, for any height that divides over the ranks (and
 bands that divide by the SSAA factor). Two places need more than the JAX
@@ -55,6 +66,7 @@ from ..core.config import RenderConfig
 from ..device import resolve_device
 from ..graph import frame as fgraph
 from ..graph import uniforms
+from ..graph.program import Programs
 from ..graph.uniforms import unpack_params
 from ..raster import cuda_raster
 from ..raster.setup import VertexOutputs
@@ -114,13 +126,26 @@ def make_mesh(world_size: int, device=None) -> Mesh:
 
 def _all_gather(t: torch.Tensor, mesh: Mesh, dim: int = 0) -> torch.Tensor:
     """Every rank's ``t`` concatenated along ``dim``, in rank order (a
-    tiled all_gather; the shapes must be equal)."""
+    tiled all_gather; the shapes must be equal). Over NCCL into one
+    buffer, which a captured program allocates once."""
     src = t.contiguous()
+    if mesh.transport == "nccl":
+        out = src.new_empty((mesh.world * src.shape[0],) + src.shape[1:])
+        _gather_into(out, src)
+        if dim == 0:
+            return out
+        return out.unflatten(0, (mesh.world, src.shape[0])).movedim(
+            0, dim).flatten(dim, dim + 1)
     if mesh.transport == "gloo-host":
         src = src.cpu()
     parts = [torch.empty_like(src) for _ in range(mesh.world)]
     dist.all_gather(parts, src)
     return torch.cat(parts, dim).to(t.device)
+
+
+def _gather_into(out: torch.Tensor, src: torch.Tensor) -> None:
+    """The ranks' ``src`` stacked along dim 0 into ``out``."""
+    dist.all_gather_into_tensor(out, src)
 
 
 def pad_scene_for_mesh(scene_dev: dict, n_devices: int) -> dict:
@@ -321,7 +346,13 @@ class ShardedRenderer:
     controller: the budgets are the config's (``pair_budget`` or the
     per-triangle rule), and the shadow pass's is ``shadow_budget`` or the
     single-card default. Overflow is counted in each frame's stats and in
-    ``shadow_overflow``."""
+    ``shadow_overflow``.
+
+    Over NCCL it captures its programs at init (the module docstring) and
+    nothing recaptures after: the config never changes. The inputs the
+    graphs read keep their storage: the uniform ``_u`` (uploaded each
+    frame without a host wait), the shadow pack and the TSS tables
+    (written with ``copy_``; ``_local``'s atlas rows are views of them)."""
 
     def __init__(self, scene_host, config: RenderConfig, mesh: Mesh,
                  backend: str = "cuda", shadow_budget: int | None = None):
@@ -371,6 +402,28 @@ class ShardedRenderer:
         self._shadows_dirty = True
         self._shadow_vp_cache = None
         self.shadow_overflow = 0    # dropped pairs of the last shadow pass
+        # the frame's one host->device input, as FrameRenderer's
+        u0 = uniforms.pack_params(self.params_for_camera(), self.n_shadows)
+        self._u = torch.zeros(u0.shape, dtype=torch.float32,
+                              device=mesh.device)
+        uniforms.upload(self._u, u0)
+        self._programs = Programs(mesh.device,
+                                  ("frame", "shadow", "vis", "tables"))
+        self._graphs = False
+        if mesh.transport == "nccl":
+            # every rank captures the same programs in the same order; each
+            # warm-up runs the collectives eagerly first, which also makes
+            # NCCL's communicator before any capture
+            if self.n_shadows > 0:
+                maps, _ = self._shadow_program().outputs
+                self._shadow_maps = shadow_mod.ShadowPack(
+                    *(torch.zeros_like(t) for t in maps))
+            if config.texture_space:
+                # bakes from the zero pack; the first render() bakes again
+                for name, key, fn in self.tss_bakes(self.n_shadows > 0):
+                    self._programs.get(name, key, fn)
+            self._graphs = True
+            self._programs.get("frame", config, self._frame_fn())
 
     @property
     def shadow_maps(self):
@@ -395,50 +448,101 @@ class ShardedRenderer:
             params["shadow_viewproj"] = self._shadow_vp_cache
         return params
 
+    def tss_bakes(self, visibility: bool) -> list:
+        """The texture-space bakes over this renderer's state
+        (``graph.frame.tss_bakes``; ``chart_vis`` is written in place, so
+        ``_local``'s atlas rows follow)."""
+        return fgraph.tss_bakes(self.scene_dev, self._u, self._shadow_maps,
+                                self.n_shadows, self._shadow_lights,
+                                self.config, visibility)
+
+    def _frame_fn(self):
+        """``render_frame_sharded`` with the renderer's state bound: the
+        function the frame program captures."""
+        return lambda: render_frame_sharded(
+            self.scene_dev, unpack_params(self._u, self.n_shadows),
+            self._shadow_maps, self.config, self.n_shadows, self.mesh,
+            self.backend, self._has_translucent, self._slots_used,
+            shadow_lights=self._shadow_lights, has_mask=self._has_mask,
+            alpha_is_factor=self._alpha_is_factor, local=self._local)
+
+    def _shadow_program(self):
+        """The sharded shadow pass captured at the shadow budget."""
+        cfg, budget = self.config, self._shadow_budget
+        return self._programs.get(
+            "shadow", (budget, cfg.shadow_extent),
+            lambda: render_shadow_pass_sharded(
+                self.scene_dev, unpack_params(self._u, self.n_shadows), cfg,
+                self.n_shadows, self.mesh, self.backend, max_pairs=budget))
+
+    def program_stats(self) -> dict:
+        """The mode (``captured`` over NCCL, ``eager`` over gloo), the
+        transport, each program's captures and replays and the captured
+        programs' measurements (``CapturedProgram.stats``)."""
+        return {"mode": "captured" if self._graphs else "eager",
+                "transport": self.mesh.transport, **self._programs.stats()}
+
+    def render_eager(self):
+        """The frame the program replays, dispatched op by op over the
+        renderer's state (the uniform of the last frame, the shadow pack,
+        the tables): the eager path of ``render()``; over NCCL, for
+        comparisons. Every rank must call it."""
+        return self._frame_fn()()
+
     def render(self, view_props: ViewProperties | None = None):
         """Render one frame: returns ([H,W,4] u8 on this rank's device, the
         whole frame on every rank; whole-frame stats). Every rank must
-        call it with the same camera."""
+        call it with the same camera. Captured, a warm frame is a replay
+        and returns clones of the graph's outputs."""
         return self._render(self.params_for_camera(view_props),
                             None if view_props is None
                             else float(view_props.exposure))
 
+    def _render_shadows(self) -> None:
+        """The cached sharded shadow pass, copied into the pack the frame
+        reads; its overflow is read once per dirty cycle."""
+        if self._graphs:
+            self._shadow_program()
+            maps, ov = self._programs.replay("shadow")
+        else:
+            maps, ov = render_shadow_pass_sharded(
+                self.scene_dev, unpack_params(self._u, self.n_shadows),
+                self.config, self.n_shadows, self.mesh, self.backend,
+                max_pairs=self._shadow_budget)
+        if self._shadow_maps is None:
+            self._shadow_maps = maps
+        else:
+            for dst, src in zip(self._shadow_maps, maps):
+                dst.copy_(src)
+        self.shadow_overflow = int(ov)     # a one-off read per dirty
+        self._shadows_dirty = False
+
     def _render(self, host_params: dict, exposure: float | None = None):
-        # the single card's uniform round trip, so the params are the
-        # same float32 values
-        u = torch.from_numpy(uniforms.pack_params(
-            host_params, self.n_shadows)).to(self.mesh.device)
-        params = unpack_params(u, self.n_shadows)
-        sd = self.scene_dev
+        # the single card's uniform, so the params are the same float32
+        # values
+        uniforms.upload(self._u, uniforms.pack_params(host_params,
+                                                      self.n_shadows))
+        bake = False
         if self.config.texture_space:
             e = (float(self.scene_host.camera.exposure) if exposure is None
                  else exposure)
             if e != self._baked_exposure:
                 self._baked_exposure = e
-                if not (self.n_shadows > 0 and self._shadows_dirty):
-                    sd.update(lightchart.static_tables(sd, self.config, e))
+                bake = True
+        progs = self._programs if self._graphs else None
         if self.n_shadows > 0 and self._shadows_dirty:
-            self._shadow_maps, ov = render_shadow_pass_sharded(
-                sd, params, self.config, self.n_shadows, self.mesh,
-                self.backend, max_pairs=self._shadow_budget)
-            self.shadow_overflow = int(ov)     # a one-off read per dirty
-            self._shadows_dirty = False
+            self._render_shadows()
             if self.config.texture_space:
                 # per-texel PCF visibility from the new maps, then the
                 # static light tables (FrameRenderer's policy)
-                geo = {"pos": sd["chart_pos"], "normal": sd["chart_normal"],
-                       "mat_id": sd["chart_mat"][15]}
-                sd["chart_vis"] = lightchart.bake_visibility(
-                    sd, geo, self._shadow_maps, params["shadow_viewproj"],
-                    self._shadow_lights)
-                sd.update(lightchart.static_tables(sd, self.config,
-                                                   self._baked_exposure))
-                self._local = shard_scene(sd, self.mesh)
-        return render_frame_sharded(
-            sd, params, self._shadow_maps, self.config, self.n_shadows,
-            self.mesh, self.backend, self._has_translucent, self._slots_used,
-            shadow_lights=self._shadow_lights, has_mask=self._has_mask,
-            alpha_is_factor=self._alpha_is_factor, local=self._local)
+                fgraph.bake_tss(self.tss_bakes(True), progs)
+        elif bake:
+            fgraph.bake_tss(self.tss_bakes(False), progs)
+        if not self._graphs:
+            return self.render_eager()
+        img, stats = self._programs.replay("frame")
+        # the next replay overwrites the graph's outputs
+        return img.clone(), {k: v.clone() for k, v in stats.items()}
 
 
 def build_sharded_renderer(scene_host, config: RenderConfig, mesh: Mesh,
@@ -446,11 +550,15 @@ def build_sharded_renderer(scene_host, config: RenderConfig, mesh: Mesh,
     """Compatibility wrapper: returns (fn, scene_dev, params_builder) where
     ``fn(scene_dev, params)`` renders one frame ([H,W,4] u8, computing and
     caching the sharded shadow pass on first use) from the host params of
-    ``params_builder()``."""
+    ``params_builder()``. A renderer that captured its programs (NCCL)
+    renders only the ``scene_dev`` it returned."""
     r = ShardedRenderer(scene_host, config, mesh, backend)
 
     def fn(scene_dev, params):
         if scene_dev is not r.scene_dev:
+            if r._graphs:
+                raise ValueError("the captured programs read the scene "
+                                 "they were captured with")
             r.scene_dev = scene_dev
             r._local = shard_scene(scene_dev, mesh)
         return r._render(params)[0]

@@ -466,7 +466,9 @@ def chart_light_static(scene, chart_pos, chart_normal, chart_mat, chart_vis,
     diffuse from every light x baked PCF visibility, exposure folded in,
     plus the ambient term. PLANAR: inputs [3/16/NL,Ah,Aw], output
     [3,Ah,Aw]. The diffuse lobe's view-dependent (1 - F(hol)) factor is
-    taken at normal incidence, (1 - f0)."""
+    taken at normal incidence, (1 - f0). ``exposure``: a Python float or
+    a 0-d float32 tensor (what a captured program reads, as JAX traces
+    it), which give the same bytes: a float scales in float32 too."""
     from . import pbr
 
     k = pbr.fd_lambert()
@@ -899,8 +901,9 @@ def tss_shade_pre(rgb_blocks, a_blocks, chart_uv, ah: int, aw: int,
 
 
 # --- the upload-time bake and the static light tables ---------------------
-# Plain functions: PyTorch runs them eagerly, so there is no counterpart of
-# the JAX package's jitted bake or of its ahead-of-time shape pass.
+# Plain functions. The upload bake runs eagerly once per upload (the JAX
+# package jits it); the renderers capture the visibility bake and the
+# static tables into CUDA graphs (``graph.frame.tss_bakes``).
 
 def bake_all(scene, config, slots_used, pre_any: bool,
              device_alpha_check: bool = False):
@@ -941,7 +944,8 @@ def static_tables(scene, config, exposure) -> dict:
     the factored screen pass reads ``chart_ld`` (rgb9e5 neighborhood
     planes, merged per frame with the specular planes); pre-shaded passes
     read ``chart_base`` (raw planar f32, re-packed with the per-frame
-    specular). ``tss_preshaded_blend`` needs both."""
+    specular). ``tss_preshaded_blend`` needs both. ``exposure``: a float
+    or a 0-d float32 tensor (``chart_light_static``)."""
     pre_any = config.tss_preshaded or config.tss_preshaded_blend
     static = chart_light_static(scene, scene["chart_pos"],
                                 scene["chart_normal"], scene["chart_mat"],

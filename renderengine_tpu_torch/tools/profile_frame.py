@@ -32,7 +32,9 @@ the kernel launches per frame and the device busy share (union of kernel
 intervals over the window). Last, ``shadow_frame_eager``: one eager
 shadow-dirty frame, for the ``frame.shadow`` span (both maps' setup,
 binning, K1 and packing) and, with ``--tss``, ``frame.tss_bake`` (the
-visibility bake and the static light tables).
+visibility bake and the static light tables); ``shadow_frame_replayed``:
+one shadow-dirty ``render()``, the shadow pass and the bakes as replays of
+their captured programs.
 
 ``--trace DIR`` also writes the profiler's Chrome trace there. Needs a
 CUDA card; exits non-zero without one.
@@ -116,21 +118,44 @@ def profiled(fn, frames: int, trace_dir: str | None) -> dict:
             "span_device_ms_per_frame": spans, "top_kernels": top}
 
 
-def eager_dirty_frame(renderer):
-    """One shadow-dirty frame dispatched op by op: the shadow pass, the
-    texture-space bakes, the frame (the renderer's maps stay as they
-    are)."""
-    from ..graph.frame import render_shadow_pass
+def eager_frame(renderer, view_props=None, dirty: bool = False):
+    """One ``renderer.render(view_props)`` dispatched op by op, as an
+    exposure-change frame or, with ``dirty``, a shadow-dirty one: the
+    uniform's upload (after the shadow refit with ``dirty``), the shadow
+    pass and its overflow read, the texture-space bakes (the visibility
+    with ``dirty``; the tables) and the frame (``render_eager``). It
+    writes the uniform and the tables as ``render()`` does at that
+    exposure, and leaves the shadow pack and the dirty flag as they
+    are."""
+    from ..graph import uniforms
+    from ..graph.frame import bake_tss, render_shadow_pass, tss_bakes
+    from ..shading import fitting
 
+    r = renderer
+    dirty = dirty and r.n_shadows > 0
+    params = r.params_for_camera(view_props)
+    maps = r._shadow_maps
+    if dirty:
+        params["shadow_viewproj"] = fitting.shadow_transforms_for_scene(
+            r.scene_host)
+    uniforms.upload(r._u, uniforms.pack_params(params, r.n_shadows))
+    if dirty:
+        maps, sov = render_shadow_pass(
+            r.scene_dev, r._u, r.config, r.n_shadows, r.backend,
+            max_pairs=r._shadow_budget_val, return_overflow=True)
+        int(sov)
+    if r.config.texture_space:
+        bake_tss(tss_bakes(r.scene_dev, r._u, maps, r.n_shadows,
+                           r._shadow_lights, r.config, dirty))
+    return r.render_eager()
+
+
+def replayed_dirty_frame(renderer):
+    """One shadow-dirty ``render()``: the shadow, bake and frame programs
+    replayed."""
     def run():
-        if renderer.n_shadows:
-            render_shadow_pass(renderer.scene_dev, renderer._u,
-                               renderer.config, renderer.n_shadows,
-                               renderer.backend,
-                               max_pairs=renderer._shadow_budget_val)
-        if renderer.config.texture_space:
-            renderer._bake_tss(visibility=renderer.n_shadows > 0)
-        renderer.render_eager()
+        renderer.mark_shadows_dirty()
+        renderer.render()
     return run
 
 
@@ -174,8 +199,10 @@ def main(argv=None) -> None:
            "replayed": profiled(renderer.render, args.frames, None),
            "captures_in_window":
                renderer.program_counts["frame_captures"] - caps,
-           "shadow_frame_eager": profiled(eager_dirty_frame(renderer), 1,
-                                          None)}
+           "shadow_frame_eager": profiled(
+               lambda: eager_frame(renderer, dirty=True), 1, None),
+           "shadow_frame_replayed": profiled(replayed_dirty_frame(renderer),
+                                             1, None)}
     print(json.dumps(out))
 
 

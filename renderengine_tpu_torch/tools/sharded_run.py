@@ -10,8 +10,20 @@ a ``RenderConfig``, the raster backend, the shadow pair budget and a frame
 count. Every rank renders every run through ``parallel.sharded.
 ShardedRenderer``; rank 0 keeps the gathered frame of each run's last
 frame and the packed shadow maps, and every rank its wall ms a frame, its
-kernel launches, its counters and the collective transport. ``launch``
-returns them as {"ranks": [rank 0's record, rank 1's, ...]}.
+kernel launches, its counters, the collective transport and its programs'
+mode, captures and replays (``program_stats``). ``launch`` returns them
+as {"ranks": [rank 0's record, rank 1's, ...]}.
+
+A run's options, beyond those: ``sync_error`` runs the frames after the
+first under ``torch.cuda.set_sync_debug_mode("error")``; ``eager_frames``
+N renders N more frames each replayed and then dispatched op by op
+(``ShardedRenderer.render_eager``), timed in turns and held to the last
+frame; ``exposure_scale`` renders one frame at the camera's exposure
+times it and ``dirty_frame`` one after ``mark_shadows_dirty()`` (rank 0
+keeps both). On a card every rank also counts the synchronizing calls
+of one more warm frame and of those two (``tools.sync_sites``). Over NCCL the
+group is bound to the rank's card (``device_id``), so its communicator
+exists before the renderer captures.
 
 A rank process imports this module and the package only (never a test
 module), uses one CPU thread unless the job says otherwise, and a rank
@@ -48,10 +60,30 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _frame(r, dev, view_props=None, sync_mode=None):
+    """One ``render()``; with ``sync_mode`` on a card, under that sync
+    debug mode (``"error"``) or counted (``"count"``: the frame and the
+    ``sync_sites`` record)."""
+    from .sync_sites import sync_sites
+
+    if sync_mode is None or dev.type != "cuda":
+        return r.render(view_props), None
+    if sync_mode == "count":
+        out = []
+        sites = sync_sites(lambda: out.append(r.render(view_props)))
+        return out[0], sites
+    torch.cuda.set_sync_debug_mode(sync_mode)
+    try:
+        return r.render(view_props), None
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
 def run_rank(job: dict, rank: int) -> dict:
     """Render the job's runs on this rank of the initialized group."""
     from ..parallel import sharded
     from ..raster import cuda_raster as cr
+    from ..scene.camera import ViewProperties
 
     mesh = sharded.make_mesh(job["world"], device=job["devices"][rank])
     scenes = {}
@@ -72,12 +104,15 @@ def run_rank(job: dict, rank: int) -> dict:
                                     backend=run.get("backend", "cuda"),
                                     shadow_budget=run.get("shadow_budget"))
         _sync(mesh.device)
+        dev = mesh.device
         rec = {"init_s": time.perf_counter() - t0, "ms": []}
-        for _ in range(run.get("frames", 1)):
+        for i in range(run.get("frames", 1)):
             dist.barrier()
             t0 = time.perf_counter()
-            frame, stats = r.render()
-            _sync(mesh.device)
+            (frame, stats), _ = _frame(
+                r, dev, sync_mode="error" if i and run.get("sync_error")
+                else None)
+            _sync(dev)
             rec["ms"].append((time.perf_counter() - t0) * 1e3)
         rec["stats"] = {k: v.tolist() for k, v in stats.items()}
         rec["shadow_overflow"] = r.shadow_overflow
@@ -86,6 +121,40 @@ def run_rank(job: dict, rank: int) -> dict:
             rec["frame"] = frame.cpu()
             if run.get("keep_shadow_maps") and r.shadow_maps is not None:
                 rec["shadow_maps"] = tuple(t.cpu() for t in r.shadow_maps)
+        rec["sync"] = (_frame(r, dev, sync_mode="count")[1]
+                       if dev.type == "cuda" else None)
+        if run.get("eager_frames"):
+            times = {"replayed": [], "eager": []}
+            same = []
+            for _ in range(run["eager_frames"]):
+                for mode, acc in times.items():
+                    dist.barrier()
+                    t0 = time.perf_counter()
+                    img, _ = (r.render_eager() if mode == "eager"
+                              else r.render())
+                    _sync(dev)
+                    acc.append((time.perf_counter() - t0) * 1e3)
+                    same.append(torch.equal(img, frame))
+            rec["replayed_ms"], rec["eager_ms"] = times["replayed"], \
+                times["eager"]
+            rec["eager_equal"] = all(same)
+        extra = []
+        if run.get("exposure_scale"):
+            vp = ViewProperties.from_camera(r.scene_host.camera)
+            vp.exposure = float(vp.exposure) * run["exposure_scale"]
+            extra.append(("exposure", vp))
+        if run.get("dirty_frame"):
+            extra.append(("dirty", None))
+        for tag, vp in extra:
+            if tag == "dirty":
+                r.mark_shadows_dirty()
+            (img, st), rec[f"sync_{tag}"] = _frame(r, dev, vp,
+                                                   sync_mode="count")
+            rec[f"stats_{tag}"] = {k: v.tolist() for k, v in st.items()}
+            rec[f"shadow_overflow_{tag}"] = r.shadow_overflow
+            if rank == 0:
+                rec[f"frame_{tag}"] = img.cpu()
+        rec["programs"] = r.program_stats()
         out["runs"][name] = rec
         del r, frame, stats
         if mesh.device.type == "cuda":
@@ -99,10 +168,13 @@ def main(argv=None) -> int:
     with open(job_path, "rb") as f:
         job = pickle.load(f)
     torch.set_num_threads(job.get("threads", 1))
+    kw = {}
+    if job["dist_backend"] == "nccl":
+        kw["device_id"] = torch.device(job["devices"][rank])
     dist.init_process_group(
         job["dist_backend"], init_method=job["init_method"],
         world_size=job["world"], rank=rank,
-        timeout=datetime.timedelta(seconds=job["timeout_s"]))
+        timeout=datetime.timedelta(seconds=job["timeout_s"]), **kw)
     try:
         out = run_rank(job, rank)
         torch.save(out, job_path.parent / f"rank{rank}.pt")

@@ -1,7 +1,8 @@
 """Where a warm frame makes the host wait on the card.
 
     python -m renderengine_tpu_torch.tools.sync_sites \
-        [--width 1920] [--height 1080] [--tss | --app]
+        [--width 1920] [--height 1080] [--tss | --app] [--dirty] \
+        [--exposure]
 
 Builds the procedural Sponza (260k triangles, 200 textures) with the
 default per-pixel config (``--tss``: the texture-space headline config;
@@ -9,11 +10,14 @@ default per-pixel config (``--tss``: the texture-space headline config;
 frames with a synchronize after each (the overflow poll settles), then
 one more ``render()`` under ``torch.cuda.set_sync_debug_mode("warn")``,
 and, where the renderer has it, one ``render_eager()`` (the frame
-dispatched op by op). For each synchronizing call it records the port's
-innermost frames of the call's stack. Prints one JSON line: per call, the
-number of synchronizing calls and the sites with their counts, and the
-card's name and power limit. Needs a CUDA card; exits non-zero without
-one.
+dispatched op by op). ``--dirty`` adds a ``render()`` after
+``mark_shadows_dirty()`` (the shadow pass, and with ``--tss`` the
+visibility and table bakes), ``--exposure`` one at 1.5x the camera's
+exposure (with ``--tss``, the table bake). For each synchronizing call it
+records the port's innermost frames of the call's stack. Prints one JSON
+line: per call, the number of synchronizing calls and the sites with
+their counts, and the card's name and power limit. Needs a CUDA card;
+exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -66,6 +70,10 @@ def main(argv=None) -> None:
                       help="the texture-space headline config")
     mode.add_argument("--app", action="store_true",
                       help="the apps' per-pixel config (2048^2 maps)")
+    ap.add_argument("--dirty", action="store_true",
+                    help="also a render() after mark_shadows_dirty()")
+    ap.add_argument("--exposure", action="store_true",
+                    help="also a render() at 1.5x the exposure")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("sync_sites: needs a CUDA card", file=sys.stderr)
@@ -74,6 +82,7 @@ def main(argv=None) -> None:
     from ..core.config import RenderConfig
     from ..graph.frame import FrameRenderer
     from ..scene import procedural
+    from ..scene.camera import ViewProperties
 
     scene = procedural.sponza_scene(width=args.width, height=args.height)
     cfg = RenderConfig(width=args.width, height=args.height)
@@ -95,6 +104,14 @@ def main(argv=None) -> None:
         "app": args.app, "render": sync_sites(r.render)}
     if hasattr(r, "render_eager"):
         out["render_eager"] = sync_sites(r.render_eager)
+    if args.exposure:
+        vp = ViewProperties.from_camera(scene.camera)
+        vp.exposure = float(vp.exposure) * 1.5
+        out["render_exposure"] = sync_sites(lambda: r.render(vp))
+        r.render()
+    if args.dirty:
+        r.mark_shadows_dirty()
+        out["render_dirty"] = sync_sites(r.render)
     print(json.dumps(out))
 
 

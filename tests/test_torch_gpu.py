@@ -543,7 +543,9 @@ def test_sharded_renderer_on_the_card(cuda_device, tmp_path, backend, world):
     """The sharded renderer on the card: a world of 1 over NCCL (the
     backend of one card a rank) and 2 ranks sharing the card over gloo
     (gathers through host memory) give the ``FrameRenderer`` frame and
-    shadow blocks, byte for byte, with the same budgets."""
+    shadow blocks, byte for byte, with the same budgets. Each frame
+    launches the opaque K1 once, and so does the warm-up of a capture
+    (NCCL: the frame program is captured at init; gloo stays eager)."""
     import torch.distributed as dist
 
     from renderengine_tpu_torch.tools import sharded_run
@@ -570,7 +572,10 @@ def test_sharded_renderer_on_the_card(cuda_device, tmp_path, backend, world):
     assert out["ranks"][0]["transport"] == (
         "nccl" if backend == "nccl" else "gloo-host")
     for rk in out["ranks"]:
-        assert rk["runs"]["frame"]["launches"].get("(8, False, False)") == 2
+        rec = rk["runs"]["frame"]
+        caps = rec["programs"]["frame_captures"]
+        assert caps == (1 if backend == "nccl" else 0)
+        assert rec["launches"].get("(8, False, False)") == 2 + caps
 
 
 # --- the captured frame program (graph/program.py) --------------------------
@@ -680,7 +685,7 @@ def test_retune_recaptures(cuda_device):
     img, _ = r.render()              # the poll grows the pair budget
     assert r.config.raster.pair_budget > budget
     assert r.program_counts["frame_captures"] == caps + 1
-    assert r._frame_prog.key == r.config
+    assert r._programs.progs["frame"].key == r.config
     assert torch.equal(img, r.render_eager()[0])
     r.config = r.config.replace(penumbra_tile_budget=64)
     assert r.program_counts["frame_captures"] == caps + 2
@@ -708,6 +713,143 @@ def test_dirty_shadow_frame_equals_eager(cuda_device, tss):
     assert tuple(t.data_ptr() for t in r._shadow_maps) == ptrs
     assert torch.equal(img, r.render_eager()[0])
     assert _overflow_free(st) and r.shadow_overflow == 0
+
+
+# --- the texture-space bake programs and the sharded programs ---------------
+
+def _delta(before, after):
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def _eager_bakes_frame(r, visibility):
+    """The TSS bakes and the frame, dispatched op by op over the
+    renderer's current state (uniform, shadow pack)."""
+    for _, _, fn in r.tss_bakes(visibility):
+        fn()
+    return r.render_eager()[0]
+
+
+@pytest.mark.gpu
+def test_tss_exposure_frame_replays_without_sync(cuda_device):
+    """An exposure change on a warm TSS renderer replays the table program
+    (captured at init beside the visibility program) and the frame, under
+    ``set_sync_debug_mode("error")``; the frame equals the eager bakes'
+    and eager frame's, byte for byte."""
+    from renderengine_tpu_torch.scene.camera import ViewProperties
+
+    sc = _small_sponza()
+    r = FrameRenderer(sc, _graph_cfg(True))
+    st = r.program_stats()
+    assert (st["mode"], st["vis_captures"], st["tables_captures"]) == \
+        ("captured", 1, 1)
+    for _ in range(3):
+        r.render()
+        torch.cuda.synchronize()
+    base, _ = r.render()
+    before = dict(r.program_counts)
+    vp = ViewProperties.from_camera(sc.camera)
+    vp.exposure = float(sc.camera.exposure) * 1.5
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        img, st = r.render(vp)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert _delta(before, r.program_counts) == {"tables_replays": 1,
+                                                "frame_replays": 1}
+    assert _overflow_free(st) and not torch.equal(img, base)
+    assert torch.equal(img, _eager_bakes_frame(r, visibility=False))
+
+
+@pytest.mark.gpu
+def test_tss_dirty_frame_syncs_only_on_the_overflow_read(cuda_device):
+    """A shadow-dirty TSS frame replays the shadow, visibility, table and
+    frame programs, and its one synchronizing call is the shadow pass's
+    overflow read (``FrameRenderer._render_shadows``); the frame equals
+    the eager bakes' and eager frame's, byte for byte."""
+    import inspect
+
+    from renderengine_tpu_torch.tools.sync_sites import sync_sites
+
+    r = FrameRenderer(_small_sponza(), _graph_cfg(True))
+    for _ in range(3):
+        r.render()
+        torch.cuda.synchronize()
+    r._react_overflow = False
+    before = dict(r.program_counts)
+    r.mark_shadows_dirty()
+    out = []
+    sites = sync_sites(lambda: out.append(r.render()))
+    lines, first = inspect.getsourcelines(fr.FrameRenderer._render_shadows)
+    line = first + next(i for i, t in enumerate(lines) if "int(sov)" in t)
+    assert sites["calls"] == 1, sites
+    (site,) = sites["sites"]
+    assert site.startswith(f"/graph/frame.py:{line}"), (site, line)
+    assert _delta(before, r.program_counts) == {
+        "shadow_replays": 1, "vis_replays": 1, "tables_replays": 1,
+        "frame_replays": 1}
+    img, st = out[0]
+    assert _overflow_free(st) and r.shadow_overflow == 0
+    assert torch.equal(img, _eager_bakes_frame(r, visibility=True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tss", [False, True], ids=["per_pixel", "tss"])
+def test_sharded_nccl_replays_its_programs(cuda_device, tmp_path, tss):
+    """A world of 1 over NCCL captures the band frame, the sharded shadow
+    pass and (TSS) the bakes at init; warm frames run under
+    ``set_sync_debug_mode("error")`` and make no synchronizing call, an
+    exposure frame none, a dirty frame one (the overflow read); the base,
+    exposure and dirty frames and the shadow blocks equal the
+    ``FrameRenderer``'s byte for byte."""
+    import torch.distributed as dist
+
+    from renderengine_tpu_torch.scene.camera import ViewProperties
+    from renderengine_tpu_torch.tools import sharded_run
+
+    if not dist.is_nccl_available():
+        pytest.skip("this torch has no NCCL")
+    spec = ("sponza_scene", dict(width=320, height=240, n_textures=8,
+                                 target_tris=20_000))
+    cfg = RenderConfig(width=320, height=240, shadow_extent=512)
+    if tss:
+        cfg = cfg.replace(debug_views=False, texture_space=True,
+                          tss_preshaded_blend=True, dither_trilinear=True,
+                          sky_halfres=True)
+    sc = sharded_run.scene_from_spec(spec)
+    r = FrameRenderer(sc, cfg, device=cuda_device)
+    img, st = r.render()
+    assert _overflow_free(st)
+    r._react_overflow = False
+    vp = ViewProperties.from_camera(sc.camera)
+    vp.exposure = float(sc.camera.exposure) * 1.5
+    bright = r.render(vp)[0].cpu()
+    r.mark_shadows_dirty()
+    dirty = r.render()[0].cpu()
+    out = sharded_run.launch(
+        {"dist_backend": "nccl", "world": 1, "devices": ["cuda:0"],
+         "runs": {"frame": {
+             "scene": spec, "config": r.config, "backend": "cuda",
+             "shadow_budget": r._shadow_budget_val, "frames": 3,
+             "sync_error": True, "exposure_scale": 1.5, "dirty_frame": True,
+             "keep_shadow_maps": True}}}, tmp_path, timeout_s=600)
+    rk = out["ranks"][0]
+    rec = rk["runs"]["frame"]
+    assert rk["transport"] == "nccl"
+    pst = rec["programs"]
+    names = ["frame", "shadow"] + (["vis", "tables"] if tss else [])
+    assert pst["mode"] == "captured"
+    assert {n: pst[f"{n}_captures"] for n in names} == dict.fromkeys(names,
+                                                                      1)
+    assert pst["frame_replays"] == 3 + 1 + 2
+    assert rec["sync"]["calls"] == 0 and rec["sync_exposure"]["calls"] == 0
+    assert rec["sync_dirty"]["calls"] == 1, rec["sync_dirty"]
+    assert torch.equal(rec["frame"], img.cpu())
+    assert torch.equal(rec["frame_exposure"], bright)
+    assert torch.equal(rec["frame_dirty"], dirty)
+    for a, b in zip(rec["shadow_maps"], r._shadow_maps):
+        assert torch.equal(a, b.cpu())
+    assert rec["shadow_overflow_dirty"] == 0
 
 
 @pytest.mark.gpu

@@ -21,6 +21,7 @@ from renderengine_tpu_torch.graph.frame import FrameRenderer
 from renderengine_tpu_torch.raster import cuda_raster
 from renderengine_tpu_torch.scene import procedural
 from renderengine_tpu_torch.scene.camera import ViewProperties
+from renderengine_tpu_torch.shading import lightchart
 
 aten = torch.ops.aten
 
@@ -187,3 +188,68 @@ def test_baked_tables_and_shadow_pack_keep_their_storage(name):
     np.testing.assert_array_equal(again.numpy(), fresh.render()[0].numpy())
     if cfg.texture_space:
         assert not np.array_equal(bright.numpy(), again.numpy())
+
+
+# --- the texture-space bake programs (FrameRenderer.tss_bakes) -------------
+
+def _tables(r):
+    return {k: r.scene_dev[k].clone() for k in ("chart_ld", "chart_base")}
+
+
+@pytest.fixture(scope="module")
+def tss_renderer():
+    r = FrameRenderer(_sponza(), _HEADLINE, device="cpu")
+    r.render()
+    return r
+
+
+def test_bake_programs_read_nothing_on_the_host(guard, tss_renderer):
+    """The functions the visibility and table programs capture (the JAX
+    ``_vis_fn`` and ``_ld_fn``) make no host read, and they write into the
+    tables the frame reads."""
+    r = tss_renderer
+    bakes = r.tss_bakes(visibility=True)
+    assert [name for name, _, _ in bakes] == ["vis", "tables"]
+    ptrs = {k: r.scene_dev[k].data_ptr()
+            for k in ("chart_vis", "chart_ld", "chart_base")}
+    with guard:
+        for _, _, fn in bakes:
+            assert fn() is None
+    assert not guard.hits, guard.hits
+    assert ptrs == {k: r.scene_dev[k].data_ptr() for k in ptrs}
+
+
+def test_table_program_reads_the_exposure_on_the_device(tss_renderer):
+    """One table function, built once, bakes the tables of a new exposure
+    when only the uniform's device exposure is rewritten (a frozen Python
+    float would bake the old ones), byte-equal to the float form."""
+    r = tss_renderer
+    (_, _, fn), = r.tss_bakes(visibility=False)
+    e0 = float(r._u[35])
+    fn()
+    before = _tables(r)
+    for e in (1.5 * e0, 0.25 * e0, e0):
+        r._u[35] = e
+        fn()
+        want = lightchart.static_tables(r.scene_dev, r.config, e)
+        for k, v in want.items():
+            assert torch.equal(r.scene_dev[k], v), (k, e)
+        if e != e0:
+            assert not torch.equal(r.scene_dev["chart_base"],
+                                   before["chart_base"])
+    assert all(torch.equal(r.scene_dev[k], v) for k, v in before.items())
+
+
+@pytest.mark.parametrize("scale", [1.0, 1.5, 0.3])
+def test_tensor_exposure_tables_equal_the_float_form(tss_renderer, scale):
+    """``static_tables`` at a 0-d float32 tensor exposure gives the bytes
+    of the Python float (``f32(e) * ld``), in every table."""
+    r = tss_renderer
+    e = float(r.scene_host.camera.exposure) * scale
+    got = lightchart.static_tables(r.scene_dev, r.config,
+                                   torch.tensor(e, dtype=torch.float32))
+    want = lightchart.static_tables(r.scene_dev, r.config, e)
+    assert set(got) == {"chart_ld", "chart_base"}
+    for k in want:
+        assert got[k].dtype == want[k].dtype
+        assert torch.equal(got[k], want[k]), k

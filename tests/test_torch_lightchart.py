@@ -443,14 +443,23 @@ def test_visibility_and_light_tables_match_jax():
     assert (d > 1e-6).mean() <= 1e-3 and d.max() <= 2 / 9 + 1e-6
     # the static tables and the per-frame pass on JAX's visibility
     sd["chart_vis"] = torch.from_numpy(jvis.copy())
-    tabs = lc.static_tables(sd, cfg, jr._baked_exposure)
-    _close(tabs["chart_base"].numpy(), jsd["chart_base"])
-    got = lc.rgb9e5_decode(tabs["chart_ld"]).numpy()
-    want = np.asarray(jlc.rgb9e5_decode(jsd["chart_ld"]))
-    # one step of the texel's shared exponent e: 2^(e - 24)
-    e = (np.asarray(jsd["chart_ld"]) >> 27).astype(np.int64)
-    step = np.exp2(e - 24.0)[..., None]
-    assert (np.abs(got - want) <= step).all()
+
+    def tables_close(tabs, jtabs):
+        _close(tabs["chart_base"].numpy(), jtabs["chart_base"])
+        got = lc.rgb9e5_decode(tabs["chart_ld"]).numpy()
+        want = np.asarray(jlc.rgb9e5_decode(jtabs["chart_ld"]))
+        # one step of the texel's shared exponent e: 2^(e - 24)
+        e = (np.asarray(jtabs["chart_ld"]) >> 27).astype(np.int64)
+        step = np.exp2(e - 24.0)[..., None]
+        assert (np.abs(got - want) <= step).all()
+
+    tables_close(lc.static_tables(sd, cfg, jr._baked_exposure), jsd)
+    # the exposure as the captured table program reads it (a 0-d device
+    # tensor) against JAX's _ld_fn (its traced exposure), at the baked
+    # exposure and at 1.5x
+    for e in (jr._baked_exposure, 1.5 * jr._baked_exposure):
+        tables_close(lc.static_tables(sd, cfg, torch.tensor(
+            e, dtype=torch.float32)), jr._ld_fn(jsd, e))
     va = {"view_pos": params["view_pos"], "exposure": params["exposure"]}
     jva = {"view_pos": jnp.asarray(params["view_pos"].numpy()),
            "exposure": jnp.asarray(params["exposure"].numpy())}
