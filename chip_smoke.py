@@ -101,7 +101,27 @@ Sponza (260k triangles, 200 textures of 512^2), checking their output:
   rows) to their plain versions and time the latter; their rows'
   ``launches`` are rank 1's in that run. The
   frame times of two ranks sharing one card are a record, not a scaling
-  claim.
+  claim;
+- the benchmark's orbit (phase orbit, ``bench_torch.py``'s ``Orbit``,
+  ``settle`` and ``timed_rounds``): the texture-space headline at 1080p
+  settles over whole orbits of 30 frames (the camera turns 0.02 rad a
+  frame; ``settle_orbits`` and ``settle_recaptures`` are printed), then
+  renders one round of 30 frames in flight; 8 orbit frames of the
+  per-pixel default follow in one round; at one orbit pose each replayed
+  frame equals ``render_eager()`` byte for byte, every counter 0, and the
+  K1/K2 launches are those of the frames and captures counted;
+- SSAA x2 (phase ssaa2): the headline and the per-pixel default at
+  ``ssaa=2``, 3840x2160 inside: each renderer captures and replays, every
+  counter is 0 once the first frame's are consumed, a replayed frame
+  equals ``render_eager()`` byte for byte, a warm headline frame makes no
+  synchronizing call (``tools.sync_sites``); from the renderers' own
+  tables K2 at the headline and K1's per-pixel opaque pass (8 attributes)
+  and dual peel at 3840x2160, each bit-exact against its plain version
+  (``max_abs_err`` 0.0) and timed; the rows' ``launches`` are those of
+  the phase's frames. Then the workspace check: the headline renderer of
+  phase orbit, captured before the 4K launches grew the split walk's
+  workspace (its graph keeps the older tensors), replays its frame at an
+  orbit pose byte-equal to its frame there from before the growth.
 Each phase is fatal: any failure exits non-zero without the final line.
 Before the last line it prints the card's name and power limit (as
 ``nvidia-smi`` reports them), one JSON line of per-kernel numbers and one
@@ -156,6 +176,10 @@ SOURCE = "renderengine_tpu_torch/csrc/raster_tile.cu"
 REPLACES = "renderengine_tpu/raster/pallas_raster.py:122"
 K2_REPLACES = "renderengine_tpu/raster/pallas_raster.py:419"
 TSS_FRAMES = 3
+# phase orbit: frames of the TSS headline's orbit (bench_torch's default)
+# and of the per-pixel default's round; the pose held to eager and the
+# one the workspace check replays
+ORBIT_FRAMES, ORBIT_PP_FRAMES, POSE, WS_POSE = 30, 8, 7, 11
 # history, not measured by this run: the one-block-per-tile kernels'
 # times before the split walk on an NVIDIA H100 80GB HBM3 at 700.00 W
 # (PERF.md, from this script as it was then), and the warm frames
@@ -196,29 +220,35 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int) -> dict:
-    """Device-side duration per call of the raster kernel (K1 or K2) that
-    ``fn`` launches, from ``torch.profiler`` over ``reps`` calls (after one
-    warm-up call); None where the profiler shows no device time."""
+def device_ms(fn, reps: int, sessions: int = 3) -> float | None:
+    """Device-side duration of one launch of the raster kernel (K1 or K2)
+    that ``fn`` launches: the mean over the kernel's records in
+    ``torch.profiler`` sessions of ``reps`` calls (after one warm-up
+    call). The profiler has shown fewer records than launches for some
+    launch shapes, so up to ``sessions`` sessions run until one shows all
+    ``reps``; None where none shows any."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-    except Exception as e:  # noqa: BLE001 — the numbers are then missing
-        log(f"  torch.profiler failed ({e!r}): device time not measured")
-        return None
-    got = 0.0
-    for evt in prof.key_averages():
-        t = getattr(evt, "device_time_total", None)
-        if t is None:
-            t = getattr(evt, "cuda_time_total", 0.0)
-        if "raster_tile_kernel" in evt.key or "merged_tile_kernel" in evt.key:
-            got += t
-    return got / reps / 1e3 if got > 0 else None
+    cuda = torch.autograd.DeviceType.CUDA
+    us = []
+    for _ in range(sessions):
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 — the numbers are then missing
+            log(f"  torch.profiler failed ({e!r}): device time not measured")
+            return None
+        got = [e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == cuda and ("raster_tile_kernel" in e.name
+                                             or "merged_tile_kernel"
+                                             in e.name)]
+        us += got
+        if len(got) >= reps:
+            break
+    return sum(us) / len(us) / 1e3 if us else None
 
 
 def solo_counts(*counts):
@@ -473,6 +503,294 @@ def k1_bound(pairs, n_slots, cpp, n_attrs, wins, demotes=0, peel=False,
     t_ops = ops / FP32_OPS_PER_S * 1e3
     by = "operations" if t_ops >= t_bytes else "bytes"
     return max(t_bytes, t_ops), by, ops, bytes_moved
+
+
+def over_counts(stats: dict, r=None) -> dict:
+    """A frame's overflow counters (and its renderer's shadow pass's)."""
+    out = {k: int(v) for k, v in stats.items() if "overflow" in k}
+    if r is not None:
+        out["shadow_overflow"] = r.shadow_overflow
+    return out
+
+
+def orbit_phase(fr, cr, scene, tss_cfg, pp_cfg, dev, reset_counts):
+    """Phase orbit: the benchmark's orbiting camera (``bench_torch``) on
+    the TSS headline at 1080p, settled through the controller and the
+    captured frame (``settle_orbits``, ``settle_recaptures``), one timed
+    round of ``ORBIT_FRAMES`` frames in flight; at one orbit pose the
+    replayed frame equals the eager frame byte for byte and every counter
+    is 0; the K2 and shadow launches are those of the frames and captures
+    counted. Then ``ORBIT_PP_FRAMES`` orbit frames of the per-pixel
+    default in one round, with the same check at one pose. Returns the
+    record and, for the workspace check, the TSS renderer (its poll off)
+    with its frame at orbit pose ``WS_POSE``."""
+    import bench_torch
+
+    t_phase = time.time()
+    orbit = bench_torch.Orbit(scene.camera)
+    k2_v2, shadow_v = ("merged", 2), (0, False, False)
+    opaque_v, peel_v = (8, False, False), (8, True, True)
+    res = {}
+    keep = None
+    try:
+        for tag, cfg, frames, warm in (
+                ("tss_headline", tss_cfg, ORBIT_FRAMES, {k2_v2: 1}),
+                ("per_pixel", pp_cfg, ORBIT_PP_FRAMES,
+                 {opaque_v: 1, peel_v: 1})):
+            r = fr.FrameRenderer(scene, cfg)
+            r.render()
+            torch.cuda.synchronize()
+            reset_counts()
+            p0 = dict(r.program_counts)
+            rec = {}
+            if tag == "tss_headline":
+                rec.update(bench_torch.settle(r, orbit, frames, dev))
+                log(f"phase orbit [{tag}]: settle_orbits "
+                    f"{rec['settle_orbits']}, settled {rec['settled']}, "
+                    f"settle_recaptures {rec['settle_recaptures']}")
+            rec.update(bench_torch.timed_rounds(r, orbit, frames, 1, dev))
+            img, st = r.render(orbit.vp(POSE))
+            torch.cuda.synchronize()
+            caps = counts_delta(p0, r.program_counts)
+            got = {str(v): n for v, n in cr.variant_counts.items() if n}
+            want = {str(v): n for v, n in expected_launches(
+                warm, caps, r.n_shadows, shadow_v).items()}
+            e_img, e_st = r.render_eager()
+            rec.update({"pose": POSE, "equal": torch.equal(img, e_img),
+                        "counters": over_counts(st, r),
+                        "eager_counters": over_counts(e_st),
+                        "programs": caps, "launches": got})
+            log(f"phase orbit [{tag}]: {rec}")
+            if (not rec["equal"] or any(rec["counters"].values())
+                    or any(rec["eager_counters"].values())
+                    or any(rec["last_round_counters"].values())
+                    or not rec["frames_0_1_differ"] or got != want):
+                raise AssertionError(f"orbit {tag}: {rec}, launches "
+                                     f"expected {want}")
+            res[tag] = rec
+            if tag == "tss_headline":
+                # the workspace check's reference: this renderer's frame
+                # at one pose, its budgets frozen from here on
+                r._react_overflow = False
+                ws_img = r.render(orbit.vp(WS_POSE))[0].cpu()
+                keep = (r, ws_img, r.program_counts["frame_captures"])
+            del r, img, e_img
+            torch.cuda.empty_cache()
+    finally:
+        orbit.restore()
+    res["wall_s"] = time.time() - t_phase
+    log(f"phase orbit: {res['wall_s']:.1f} s")
+    return res, keep
+
+
+def ssaa2_phase(fr, cr, scene, tss_cfg, pp_cfg, dev, reset_counts, times,
+                rows):
+    """Phase ssaa2: the TSS headline and the per-pixel default at
+    ``ssaa=2`` (3840x2160 inside) through ``FrameRenderer``: the frames
+    capture and replay, every counter is 0 once the first frame's are
+    consumed, a replayed frame equals ``render_eager()`` byte for byte,
+    and a warm TSS frame makes no synchronizing call. Then the three
+    launch shapes at 3840x2160 from the renderers' own tables, each
+    bit-exact against its plain version and timed: K2 at the headline
+    (n_attrs_b 2), K1's per-pixel opaque pass (n_attrs 8) and K1's
+    per-pixel dual peel. Fills ``times`` and ``rows`` (per kernel row:
+    launches in this phase's frames, error, plain ms, bound, pairs)."""
+    from renderengine_tpu_torch.tools.sync_sites import sync_sites
+
+    t_phase = time.time()
+    w4, h4 = 2 * SPONZA_W, 2 * SPONZA_H
+    ntx4, nty4 = -(-w4 // cr.TILE_W), -(-h4 // cr.TILE_H)
+    n_tiles4 = ntx4 * nty4
+    k2_v2, shadow_v = ("merged", 2), (0, False, False)
+    opaque_v, peel_v = (8, False, False), (8, True, True)
+    res = {}
+
+    def frames(r, n=4):
+        """n frames, each synchronized: the first frame's counters are
+        consumed by the second's poll; returns the last frame's."""
+        for _ in range(n):
+            img, st = r.render()
+            torch.cuda.synchronize()
+        return img, st
+
+    def frame_ms(fn, n):
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    for tag, cfg, warm, n_time in (
+            ("tss_headline_ssaa2", tss_cfg.replace(ssaa=2), {k2_v2: 1}, 10),
+            ("per_pixel_ssaa2", pp_cfg.replace(ssaa=2),
+             {opaque_v: 1, peel_v: 1}, 3)):
+        t_mode = time.time()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.time()
+        r = fr.FrameRenderer(scene, cfg)
+        torch.cuda.synchronize()
+        rec = {"init_s": time.time() - t0}
+        img, st = frames(r)
+        got_imgs = []
+        sites = sync_sites(lambda: got_imgs.append(r.render()))
+        img, st = got_imgs[0]
+        torch.cuda.synchronize()
+        caps = dict(r.program_counts)
+        got = {str(v): n for v, n in cr.variant_counts.items() if n}
+        want = {str(v): n for v, n in expected_launches(
+            warm, caps, r.n_shadows, shadow_v).items()}
+        launches = dict(cr.variant_counts)
+        e_img, e_st = r.render_eager()
+        rec.update({"shape": list(img.shape),
+                    "render_extent": list(r.config.render_extent()),
+                    "sync_warm_frame": sites, "equal": torch.equal(img,
+                                                                   e_img),
+                    "counters": over_counts(st, r),
+                    "eager_counters": over_counts(e_st),
+                    "programs": r.program_stats(), "launches": got})
+        rec["frame_ms"] = {"replayed": frame_ms(r.render, n_time),
+                           "eager": frame_ms(r.render_eager, 2)}
+        rec["frame_ms"]["replayed_median"] = statistics.median(
+            rec["frame_ms"]["replayed"])
+        rec["frame_ms"]["eager_median"] = statistics.median(
+            rec["frame_ms"]["eager"])
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+        log(f"phase ssaa2 [{tag}]: {rec}")
+        if (rec["shape"] != [SPONZA_H, SPONZA_W, 4] or not rec["equal"]
+                or any(rec["counters"].values())
+                or any(rec["eager_counters"].values()) or got != want
+                or (tag.startswith("tss") and sites["calls"])):
+            raise AssertionError(f"ssaa2 {tag}: {rec}, launches expected "
+                                 f"{want}")
+        # the 3840x2160 launch shapes, from this renderer's tables at the
+        # camera's pose
+        sd, rc = r.scene_dev, r.config
+        params = fr.unpack_params(r._u, r.n_shadows)
+        setup_a = fr.opaque_setup(sd, params, rc, r._has_mask)
+        prep_a = fr.opaque_pairs(sd, setup_a, rc)
+        ba = prep_a.bins
+        if int(ba.n_overflow) or int(ba.n_tail):
+            raise AssertionError(f"{tag}: opaque pair overflow at 4K")
+        setup_b = fr.blend_setup(sd, params, rc)
+        prep_b = fr.blend_pairs(sd, setup_b, rc)
+        bb = prep_b.bins
+        if int(bb.n_overflow) or int(bb.n_tail):
+            raise AssertionError(f"{tag}: blend pair overflow at 4K")
+        pairs_a, pairs_b = int(ba.counts.sum()), int(bb.counts.sum())
+        if tag.startswith("tss"):
+            err, st_k2, plain_ms = k2_check(
+                cr, prep_a, prep_b, ntx4, w4, h4, 2,
+                f"headline {w4}x{h4}, n_attrs_b=2")
+            k2_args = (prep_a.pair_data, ba.starts, ba.counts,
+                       prep_b.pair_data, bb.starts, bb.counts, ntx4, w4, h4,
+                       0, 2)
+            sa, sb = solo_counts(ba.counts, bb.counts)
+            times["merged_tile_4k"] = time_shape(
+                f"K2 {w4}x{h4}", lambda: cr.merged_tiles(*k2_args),
+                lambda: cr.merged_tiles(*k2_args[:2], sa, *k2_args[3:5], sb,
+                                        *k2_args[6:]))
+            rows["merged_tile_4k"] = {
+                "launches": launches.get(k2_v2, 0), "err": err,
+                "plain_ms": plain_ms, "pairs": pairs_a + pairs_b,
+                "bound": k2_bound(pairs_a, pairs_b, n_tiles4, 2,
+                                  st_k2["wins"], st_k2["wins_b"],
+                                  st_k2["demotes"])}
+        else:
+            err, st_o, plain_ms = k1_plain_check(
+                cr, prep_a, ntx4, w4, h4, f"per-pixel opaque {w4}x{h4}")
+            o_args = (prep_a.pair_data, ba.starts, ba.counts, ntx4, w4, h4,
+                      0, 8)
+            (o_solo,) = solo_counts(ba.counts)
+            times["raster_tile_4k"] = time_shape(
+                f"per-pixel opaque {w4}x{h4}",
+                lambda: cr.raster_tiles(*o_args),
+                lambda: cr.raster_tiles(*o_args[:2], o_solo, *o_args[3:]))
+            rows["raster_tile_4k"] = {
+                "launches": launches.get(opaque_v, 0), "err": err,
+                "plain_ms": plain_ms, "pairs": pairs_a,
+                "bound": k1_bound(pairs_a, n_tiles4,
+                                  prep_a.pair_data.shape[1], 8,
+                                  st_o["wins"])}
+            depth = cr.rasterize_cuda(setup_a, h4, w4,
+                                      prepared=prep_a)[0].depth
+            bounds = cr._tile_bounds(
+                (torch.full_like(depth, -1.0), depth), h4, w4, nty4, ntx4)
+            tile_map = (cr.sparse_tile_map(bb.counts, rc.blend_tile_budget)
+                        if rc.blend_tile_budget < n_tiles4 else None)
+            n_sel = n_tiles4 if tile_map is None else int(tile_map.shape[0])
+            perr, st_p, p_plain_ms = k1_plain_check(
+                cr, prep_b, ntx4, w4, h4,
+                f"per-pixel dual peel {w4}x{h4}, {n_sel} of {n_tiles4} "
+                f"tiles", bounds, tile_map, True)
+            p_args = (prep_b.pair_data, bb.starts, bb.counts, ntx4, w4, h4,
+                      0, 8, bounds, tile_map, True)
+            (p_solo,) = solo_counts(bb.counts)
+            times["raster_tile_peel2_4k"] = time_shape(
+                f"per-pixel dual peel {w4}x{h4}",
+                lambda: cr.raster_tiles(*p_args),
+                lambda: cr.raster_tiles(*p_args[:2], p_solo, *p_args[3:]))
+            p_pairs = int(bb.counts.sum() if tile_map is None
+                          else bb.counts[tile_map.long()].sum())
+            rows["raster_tile_peel2_4k"] = {
+                "launches": launches.get(peel_v, 0), "err": perr,
+                "plain_ms": p_plain_ms, "pairs": p_pairs,
+                "bound": k1_bound(p_pairs, n_sel, prep_b.pair_data.shape[1],
+                                  8, st_p["wins"], st_p["demotes"],
+                                  peel=True, dual=True,
+                                  sparse=tile_map is not None)}
+            del depth, bounds
+        rec["workspace_bytes"] = cr.workspace_bytes()
+        rec["wall_s"] = time.time() - t_mode
+        res[tag] = rec
+        del r, img, e_img, prep_a, prep_b, setup_a, setup_b
+        torch.cuda.empty_cache()
+    for name in ("merged_tile_4k", "raster_tile_4k", "raster_tile_peel2_4k"):
+        b = rows[name]
+        log(f"phase ssaa2 [{name}]: {b['pairs']} pairs, max_abs_err "
+            f"{b['err']!r}, {times[name]['ms']:.4f} ms (in a graph "
+            f"{times[name]['in_graph_ms']:.4f}), plain {b['plain_ms']:.2f} "
+            f"ms, bound {b['bound'][0]:.4f} ms ({b['bound'][1]}), "
+            f"launches {b['launches']}")
+        if b["err"] != 0.0 or not b["launches"]:
+            raise AssertionError(f"{name}: {b}")
+    res["wall_s"] = time.time() - t_phase
+    log(f"phase ssaa2: {res['wall_s']:.1f} s")
+    return res
+
+
+def workspace_phase(cr, keep, scene, dev):
+    """The workspace check: after phase ssaa2 grew the split walk's
+    workspace, a 1080p renderer captured before the growth (its graph
+    holds the older workspace tensors) replays its frame at the same
+    orbit pose byte-equal to its frame from before the growth."""
+    import bench_torch
+
+    r, ws_img, caps = keep
+    old = r._programs.progs["frame"].workspace
+    if len(old) != 2:
+        raise AssertionError("the captured frame program kept no workspace")
+    now = cr.workspace_tensors(dev)
+    orbit = bench_torch.Orbit(scene.camera)
+    try:
+        img = r.render(orbit.vp(WS_POSE))[0].cpu()
+    finally:
+        orbit.restore()
+    res = {"old_workspace_bytes": sum(t.numel() * t.element_size()
+                                      for t in old),
+           "workspace_bytes": cr.workspace_bytes(),
+           "grown": old[0].data_ptr() != now[0].data_ptr(),
+           "recaptures": r.program_counts["frame_captures"] - caps,
+           "equal": torch.equal(img, ws_img)}
+    log(f"phase workspace: {res}")
+    if not (res["grown"] and res["equal"]) or res["recaptures"]:
+        raise AssertionError(f"workspace check: {res}")
+    return res
 
 
 def main() -> None:
@@ -1555,6 +1873,38 @@ def main() -> None:
     except Exception as e:  # noqa: BLE001
         fail(phase, e)
 
+    # phase: the benchmark's orbit (bench_torch.py) on the TSS headline and
+    # the per-pixel default at 1080p: settling, a round of frames in
+    # flight, replayed against eager at one pose, counters 0
+    phase = "orbit"
+    try:
+        pp_cfg = RenderConfig(width=SPONZA_W, height=SPONZA_H)
+        orbit_res, ws_keep = orbit_phase(fr, cr, scene, tss_cfg, pp_cfg,
+                                         dev, reset_counts)
+    except Exception as e:  # noqa: BLE001
+        fail(phase, e)
+
+    # phase: SSAA x2 at 1080p (3840x2160 inside): both configs captured,
+    # replayed and held to eager; K2 and both K1 launches at 3840x2160
+    # bit-exact against their plain versions, timed
+    phase = "ssaa2"
+    try:
+        ssaa2_rows = {}
+        ssaa2_res = ssaa2_phase(fr, cr, scene, tss_cfg, pp_cfg, dev,
+                                reset_counts, times, ssaa2_rows)
+    except Exception as e:  # noqa: BLE001
+        fail(phase, e)
+
+    # the workspace check: a 1080p frame captured before phase ssaa2 grew
+    # the split walk's workspace replays as it did
+    phase = "workspace"
+    try:
+        ws_res = workspace_phase(cr, ws_keep, scene, dev)
+        del ws_keep
+        torch.cuda.empty_cache()
+    except Exception as e:  # noqa: BLE001
+        fail(phase, e)
+
     # phase: the compiled frame. For the per-pixel default, the TSS
     # headline and the app's per-pixel config (2048^2 maps), each with the
     # poll on: the renderer captures its frame and shadow programs at init
@@ -2396,7 +2746,10 @@ def main() -> None:
         band_row("raster_tile_band", "band_opaque"),
         band_row("raster_tile_peel2_band", "band_peel2"),
         band_row("merged_tile_band", "band_k2", k2=True),
-    ]
+    ] + [row(name, b["launches"], b["err"], times[name]["ms"],
+             b["plain_ms"], b["bound"][0], b["bound"][1],
+             k2=name.startswith("merged"), pairs=b["pairs"])
+         for name, b in ssaa2_rows.items()]
     for k in kernels:
         log(f"{k['name']}: {k['ms']!r} ms in this run, in a graph "
             f"{k['in_graph_ms']!r} ms, device "
@@ -2458,6 +2811,9 @@ def main() -> None:
                         "bytes": sh2_bytes,
                         "launches_app_path": app_shadow_launches},
         "graph": graph_res, "app": app, "sharded": sharded_res,
+        "orbit": orbit_res, "ssaa2": ssaa2_res, "workspace": ws_res,
+        "ssaa2_kernels": {k: {"ops": b["bound"][2], "bytes": b["bound"][3]}
+                          for k, b in ssaa2_rows.items()},
         "width": SPONZA_W, "height": SPONZA_H, "card": card,
         "wall_s": time.time() - t_start}}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -129,6 +129,20 @@ def rotate(angle_radians: float, axis) -> np.ndarray:
     return m
 
 
+def transform_points(m: np.ndarray, pts: np.ndarray) -> np.ndarray:
+    """Apply a 4x4 to [N,3] points with perspective divide."""
+    pts = np.asarray(pts, dtype=np.float32)
+    h = pts @ m[:3, :3].T + m[:3, 3]
+    w = pts @ m[3, :3].T + m[3, 3]
+    return (h / w[..., None]).astype(np.float32)
+
+
+def transform_dirs(m: np.ndarray, dirs: np.ndarray) -> np.ndarray:
+    """Apply the linear part of a 4x4 to [N,3] directions (w = 0)."""
+    dirs = np.asarray(dirs, dtype=np.float32)
+    return (dirs @ m[:3, :3].T).astype(np.float32)
+
+
 def normal_matrix(m: np.ndarray) -> np.ndarray:
     """transpose(inverse(mat3(m))) — normal transform (``primitive.vert:55``)."""
     return np.linalg.inv(np.asarray(m, dtype=np.float32)[:3, :3]).T.astype(np.float32)

@@ -1299,6 +1299,28 @@ class FrameRenderer:
         self._shadows_dirty = True
         self._shadow_vp_cache = None   # refit to the CURRENT camera/scene
 
+    def binning_stats(self, view_props: ViewProperties | None = None) -> dict:
+        """One-off check of the opaque pair-table budget for a camera:
+        {'live': pairs used, 'budget': capacity, 'overflow': dropped
+        pairs}, counted on the device and read with one host read.
+        Overflow > 0 means raise ``RasterConfig.pairs_per_tri``."""
+        h, w = self.config.render_extent()
+        u = torch.from_numpy(uniforms.pack_params(
+            self.params_for_camera(view_props), self.n_shadows))
+        params = unpack_params(u.to(self.device), self.n_shadows)
+        sd = self.scene_dev
+        budget = (self.config.raster.pair_budget
+                  or _pair_budget(int(sd["tri_vidx"].shape[0]),
+                                  self.config.raster.pairs_per_tri))
+        eth, etw = _effective_tiles(self.config.raster, self.backend)
+        vo = cached_vertex_outputs(sd, params["view"], params["proj"])
+        s = triangle_setup(vo.clip, sd["tri_vidx"], sd["n_opaque"], w, h,
+                           self.config.cull_mode)
+        b = binning.bin_triangles(s, h, w, eth, etw, budget)
+        live, overflow = torch.stack(
+            [b.pair_valid.sum(), b.n_overflow.to(torch.int64)]).tolist()
+        return {"live": live, "budget": int(budget), "overflow": overflow}
+
     def params_for_camera(self, view_props: ViewProperties | None = None):
         vp = view_props or ViewProperties.from_camera(self.scene_host.camera)
         params = vp.as_arrays()

@@ -258,8 +258,14 @@ def _workspace(lib, dev, n_slots: int, rows: int, layers: int):
 def workspace_tensors(dev) -> tuple:
     """The device's workspace tensors as they stand. A captured CUDA
     graph holds them: its launches keep the pointers, so the memory must
-    outlive the graph even if a later launch grows the workspace."""
-    w = _workspaces.get(torch.device(dev).index)
+    outlive the graph even if a later launch grows the workspace.
+    ``cuda`` without an index is the current device, whose index the
+    launches file the workspace under."""
+    dev = torch.device(dev)
+    if dev.type != "cuda":
+        return ()
+    w = _workspaces.get(torch.cuda.current_device() if dev.index is None
+                        else dev.index)
     return () if w is None else (w.ints, w.keys)
 
 

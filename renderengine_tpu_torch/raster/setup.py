@@ -73,6 +73,27 @@ def clip_coords(world: torch.Tensor, vp: torch.Tensor) -> torch.Tensor:
     return _sum_last(vp[None, :, :] * world_h[:, None, :])
 
 
+def vertex_transform(scene: dict, view: torch.Tensor,
+                     proj: torch.Tensor) -> VertexOutputs:
+    """All-scene vertex stage (reference ``primitive.vert:49-57``): world =
+    node transform; clip = proj @ view @ world; normals through the
+    per-node inverse-transpose (hoisted to scene upload). The frame uses
+    the world-space cache instead (``graph.frame.cached_vertex_outputs``)."""
+    pos, nrm = scene["positions"], scene["normals"]
+    node = scene["vert_node"].long()
+    tf = scene["transforms"][node]               # [V,4,4]
+    nmat = scene["normal_mats"][node]            # [V,3,3]
+    h = _sum_last(tf[:, :3, :3] * pos[:, None, :]) + tf[:, :3, 3]
+    w = _sum_last(tf[:, 3, :3] * pos) + tf[:, 3, 3]
+    world = h / w[:, None]
+    wn = _sum_last(nmat * nrm[:, None, :])
+    wn = wn / torch.linalg.vector_norm(wn, dim=-1,
+                                       keepdim=True).clamp_min(1e-20)
+    clip = clip_coords(world, viewproj(view.to(torch.float32),
+                                       proj.to(torch.float32)))
+    return VertexOutputs(world, wn, scene["uvs"], clip)
+
+
 def corner_clip(corner_pos: torch.Tensor, vp: torch.Tensor) -> torch.Tensor:
     """[T,3,4] corner clip coords from STATIC world-space corner positions
     (``scene.upload``'s ``corner_attr[..., 0:3]``): a dense multiply-add

@@ -287,6 +287,29 @@ def sample_texture_rows(atlas, mip_y, mip_x, tex, n_mips, uv, lod=None,
                                   dither)
 
 
+def sample_texture(atlas, tex_table, mip_y, mip_x, handle, uv,
+                   lod=None) -> torch.Tensor:
+    """Trilinear (or bilinear if ``lod`` is None) sample by texture
+    handle: tex_table [N,6] int32 rows (page, x, y, w, h, n_mips), handle
+    [...] (invalid ids clamped: the caller masks), uv [...,2]. Returns
+    rgba f32 [...,4]."""
+    row = tex_table[handle.clamp(0, tex_table.shape[0] - 1).long()]
+    tex = dict(zip(("page", "x", "y", "w", "h"), row.unbind(-1)[:5]))
+    return sample_texture_rows(atlas, mip_y, mip_x, tex, row[..., 5], uv,
+                               lod)
+
+
+def compute_lod(uv: torch.Tensor, tex_w, tex_h) -> torch.Tensor:
+    """GLSL implicit LOD: log2(max(|ddx|, |ddy|)) of texel coords with
+    quad derivatives. uv [H,W,2]; tex_w/h [H,W]."""
+    tc = uv * torch.stack([tex_w.to(torch.float32),
+                           tex_h.to(torch.float32)], -1)
+    dx, dy = quad_dfdx(tc), quad_dfdy(tc)
+    rho = torch.maximum(torch.sqrt((dx * dx).sum(-1)),
+                        torch.sqrt((dy * dy).sum(-1)))
+    return det_log2(rho.clamp_min(1e-20))
+
+
 def _norm2(v: torch.Tensor) -> torch.Tensor:
     """Euclidean length over the last axis of size 2, a + b order."""
     return torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1])
@@ -510,6 +533,15 @@ def sample_slots_aniso_tiered(atlas, mip_y, mip_x, slots, uv,
             outs[si] = torch.where(hit, scat, outs[si])
         prev = taps
     return outs
+
+
+def sample_texture_aniso_tiered(atlas, mip_y, mip_x, tex, n_mips, uv,
+                                duv_dx, duv_dy, spec: AnisoSpec,
+                                seg_w: int = 128):
+    """Single-slot form of ``sample_slots_aniso_tiered``."""
+    return sample_slots_aniso_tiered(atlas, mip_y, mip_x, [(tex, n_mips)],
+                                     uv, duv_dx, duv_dy, spec,
+                                     seg_w=seg_w)[0]
 
 
 # --- cubemap --------------------------------------------------------------

@@ -18,6 +18,11 @@ def linear_to_srgb(c: torch.Tensor) -> torch.Tensor:
     return torch.where(c <= 0.0031308, lo, hi)
 
 
+def srgb_to_linear_rgba(c: torch.Tensor) -> torch.Tensor:
+    """vec4 variant: alpha passes through (``pbr.glsl:56-65``)."""
+    return torch.cat([srgb_to_linear(c[..., :3]), c[..., 3:4]], dim=-1)
+
+
 def encode_srgb8(linear_rgb: torch.Tensor,
                  alpha: torch.Tensor | None = None) -> torch.Tensor:
     """Linear float -> sRGB uint8, the swapchain's R8G8B8A8-sRGB encode

@@ -864,3 +864,37 @@ def test_failed_capture_raises(cuda_device):
         CapturedProgram(lambda: x * float(x.sum()), cuda_device,
                         torch.cuda.Stream())
     assert cr.count_snapshot() == before
+
+
+@pytest.mark.gpu
+def test_captured_launch_outlives_a_workspace_growth(cuda_device):
+    """A K1 launch captured by ``CapturedProgram`` on the index-less
+    ``cuda`` device keeps its workspace: after a larger launch grows the
+    device's workspace and the freed memory goes back to the driver, the
+    replay still equals the plain version."""
+    from renderengine_tpu_torch.graph.program import CapturedProgram
+
+    rng = np.random.default_rng(31)
+    s = _random_setup(rng, 60, 97, 61, CullMode.NONE)
+    prep = cr.prepare_pairs(s.__class__(*(t.to(cuda_device) for t in s)),
+                            61, 97, max_pairs=8192)
+    b = prep.bins
+    args = (prep.pair_data, b.starts, b.counts, -(-97 // cr.TILE_W), 97, 61)
+    want = cr._raster_tiles_plain(*args)
+    torch.cuda.synchronize()
+    prog = CapturedProgram(lambda: cr.raster_tiles(*args), "cuda",
+                           torch.cuda.Stream())
+    assert len(prog.workspace) == 2
+    big = _random_setup(rng, 400, 1024, 768, CullMode.NONE)
+    pb = cr.prepare_pairs(big.__class__(*(t.to(cuda_device) for t in big)),
+                          768, 1024, max_pairs=1 << 18)
+    cr.raster_tiles(pb.pair_data, pb.bins.starts, pb.bins.counts,
+                    1024 // cr.TILE_W, 1024, 768)
+    assert cr.workspace_tensors("cuda")[0].data_ptr() != \
+        prog.workspace[0].data_ptr()
+    del pb
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = prog.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)

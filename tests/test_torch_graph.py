@@ -253,3 +253,22 @@ def test_tensor_exposure_tables_equal_the_float_form(tss_renderer, scale):
     for k in want:
         assert got[k].dtype == want[k].dtype
         assert torch.equal(got[k], want[k]), k
+
+
+def test_workspace_of_an_indexless_cuda_device(monkeypatch):
+    """A captured program keeps the split walk's workspace tensors
+    (``cuda_raster.workspace_tensors``), which the launches file under
+    their tensors' device index. A renderer's device is ``cuda`` with no
+    index: the lookup must resolve it to the current device, or the
+    program keeps nothing and a later growth frees memory its graph still
+    launches on."""
+    ws = cuda_raster._Workspace(None)
+    ws.ints = torch.zeros(8, dtype=torch.int32)
+    ws.keys = torch.zeros(4, dtype=torch.int64)
+    monkeypatch.setattr(cuda_raster, "_workspaces", {0: ws})
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    for dev in ("cuda", torch.device("cuda"), "cuda:0"):
+        got = cuda_raster.workspace_tensors(dev)
+        assert len(got) == 2 and got[0] is ws.ints and got[1] is ws.keys
+    assert cuda_raster.workspace_tensors("cuda:1") == ()
+    assert cuda_raster.workspace_tensors("cpu") == ()
