@@ -125,6 +125,9 @@
 // Bounds: [n_tiles, 2, 256] f32: prev | zmax per pixel. K1 output:
 // [n_slots, (3 + n_num) * layers, 256] f32 planes, per layer depth | tri |
 // mat | nums. K2 output: [n_tiles, (3 + 4) + 2 * (3 + N_ATTRS_B), 256].
+//
+// Beside them, clock_stamp_kernel: the device clock stamps of the frame's
+// passes (utils/profiling.py::Stamps), one thread a launch.
 
 #include <cuda_runtime.h>
 
@@ -806,6 +809,31 @@ void launch_k1_mode(bool peel, bool dual, const K1Args& a, long long rows,
   }
 }
 
+// --- device clock stamps ----------------------------------------------------
+
+// One thread reads the device clock (%globaltimer, ns) into a stamp
+// buffer of 2 * n_regions slots (utils/profiling.py::Stamps): a region's
+// entry writes buf[slot], its exit adds the time since then to
+// buf[n_regions + slot]. With `out`, the durations are then copied there
+// and cleared (the frame program's last stamp).
+__global__ void clock_stamp_kernel(long long* buf, int slot, int exit,
+                                   long long* out, int n_regions) {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  const long long now = static_cast<long long>(t);
+  if (exit) {
+    buf[n_regions + slot] += now - buf[slot];
+  } else {
+    buf[slot] = now;
+  }
+  if (out != nullptr) {
+    for (int i = 0; i < n_regions; ++i) {
+      out[i] = buf[n_regions + i];
+      buf[n_regions + i] = 0;
+    }
+  }
+}
+
 }  // namespace
 
 // Pairs per work item.
@@ -878,5 +906,15 @@ extern "C" int merged_tile_launch(const float* pairs_a, const int* starts_a,
   } else {
     launch_k2<4>(a, rows, s);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One clock stamp (clock_stamp_kernel) on `stream`; out may be null.
+// Returns the CUDA error code (0 = launched).
+extern "C" int clock_stamp_launch(long long* buf, int slot, int exit,
+                                  long long* out, int n_regions,
+                                  void* stream) {
+  clock_stamp_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      buf, slot, exit, out, n_regions);
   return static_cast<int>(cudaGetLastError());
 }

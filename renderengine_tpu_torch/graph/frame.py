@@ -41,7 +41,6 @@ import os
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..core import engine
 from ..core.config import CullMode, RasterConfig, RenderConfig, ShadingModel
@@ -59,6 +58,8 @@ from ..shading import lightchart, pbr, phong, sampling, skybox
 from ..shading import shadow as shadow_mod
 from ..shading.srgb import encode_srgb8
 from ..shading.textured_quad import draw_textured_quad
+from ..utils import profiling
+from ..utils.profiling import span
 from . import uniforms
 from .program import Programs
 from .uniforms import unpack_params
@@ -374,7 +375,7 @@ def render_shadow_pass(scene, uniform, config: RenderConfig, n_shadows: int,
     (``RenderScene.cpp:170-181``). Returns the packed maps
     (``shadow.ShadowPack``)."""
     params = unpack_params(uniform, n_shadows)
-    with record_function("frame.shadow"):
+    with span("frame.shadow"):
         maps, overflow = render_shadow_maps(
             scene, params["shadow_viewproj"], config.shadow_extent,
             n_shadows, config.raster, backend, max_pairs=max_pairs,
@@ -609,15 +610,15 @@ def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
     mask_pass = config.alpha_mask and has_mask
     blend_pass = config.translucency and has_translucent
 
-    # record_function spans name the layers for torch.profiler
-    # (tools/profile_frame.py); with no profiler running they cost a little
-    # host time and no device work
+    # spans name the passes (utils/profiling.py): ranges for
+    # torch.profiler while a session runs, and inside a renderer's
+    # programs the device clock stamps of the passes of STAMPED
     tss = config.texture_space
     if tss:
         # the per-frame SPECULAR chart pass (dense over chart texels, zero
         # gathers); the diffuse table is static (baked on upload /
         # shadow-dirty / exposure change)
-        with record_function("frame.tss_spec"):
+        with span("frame.tss_spec"):
             if ls_atlas is None:
                 ls_atlas = lightchart.chart_light_spec(
                     scene, scene["chart_pos"], scene["chart_normal"],
@@ -630,7 +631,7 @@ def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
                  and config.translucency_layers >= 2 and not mask_pass
                  and not _FORCE_UNMERGED)
     merged_layers = None
-    with record_function("frame.setup"):
+    with span("frame.setup"):
         setup = opaque_setup(scene, params, config, has_mask)
         # (the blend draw list's setup/binning sits before the opaque
         # raster, where a merged opaque+peel launch would consume it)
@@ -641,7 +642,7 @@ def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
         setup_ts = rows(setup_t) if blend_pass else None
     prep = prep_t = None
     if cuda:
-        with record_function("frame.bin_pack"):
+        with span("frame.bin_pack"):
             prep = opaque_pairs(scene, setup_s, config, slice_h, y0)
             overflow = overflow + prep.bins.n_overflow
             tail_overflow = tail_overflow + prep.bins.n_tail
@@ -654,12 +655,12 @@ def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
         # interpolates just that prefix
         nab = 2 if (config.tss_preshaded or config.tss_preshaded_blend) \
             else None
-        with record_function("frame.merged_raster"):
+        with span("frame.merged_raster"):
             (g, attrs), merged_layers = cuda_raster.rasterize_cuda_merged(
                 slice_h, w, prep, prep_t, y0=y0, full_height=fh,
                 n_attrs_b=nab)
     else:
-        with record_function("frame.raster"):
+        with span("frame.raster"):
             g, attrs = rasterize(setup_s, slice_h, w, backend, y0=y0,
                                  full_height=fh, prepared=prep)
     covered = g.tri_id >= 0
@@ -670,14 +671,14 @@ def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
         else:
             frag = lightchart.resolve_tss(scene, setup.coef, g, slice_h, w,
                                           y0=y0, full_height=fh)
-        with record_function("frame.shade"):
+        with span("frame.shade"):
             rgba = tss_dense(frag["chart_uv"], frag["uv"], frag["mat_id"],
                              need_alpha=False, covered=covered)
     else:
         frag = (kernel_frag(g, attrs) if attrs is not None else
                 resolve_attributes(scene, vo, setup.coef, g, slice_h, w,
                                    y0=y0, full_height=fh))
-        with record_function("frame.shade"):
+        with span("frame.shade"):
             rgba = shade(frag, covered)
     depth_eff = g.depth
 
@@ -689,7 +690,7 @@ def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
     # stacked discarded layers beyond config.mask_layers fall back to the
     # opaque surface. Shadows still treat MASK as opaque casters (parity).
     if mask_pass:
-        with record_function("frame.mask"):
+        with span("frame.mask"):
             setup_m = _list_setup(scene, params, config, "corner_attr_mask",
                                   "n_mask", config.cull_mode)
             setup_ms = rows(setup_m)
@@ -732,7 +733,7 @@ def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
     # (skybox.frag:30), so its stored (sRGB-encoded) values pass through as
     # if linear and get re-encoded by the swapchain.
     if config.skybox:
-        with record_function("frame.sky"):
+        with span("frame.sky"):
             sky_fn = (skybox.render_skybox_halfres if config.sky_halfres
                       else skybox.render_skybox)
             sky = sky_fn(scene["cubemap"], params["inv_vp_rot"], slice_h, w,
@@ -810,7 +811,7 @@ def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
             g_last = merged_layers[1][0]
             prev = torch.where(g_last.tri_id >= 0, g_last.depth, 2.0)
             li = 2
-        with record_function("frame.peel_raster"):
+        with span("frame.peel_raster"):
             while li < config.translucency_layers:
                 dual = cuda and li + 1 < config.translucency_layers
                 out = rasterize(setup_ts, slice_h, w, backend, y0=y0,
@@ -824,7 +825,7 @@ def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
                 g_last = new[-1][0]
                 prev = torch.where(g_last.tri_id >= 0, g_last.depth, 2.0)
         layers = []
-        with record_function("frame.peel_shade"):
+        with span("frame.peel_shade"):
             for li, (gt, attrs_t) in enumerate(raster_layers):
                 budget = (layer_budgets[li] if li < len(layer_budgets)
                           else shared_budget)
@@ -871,7 +872,7 @@ def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
     # editor ground grid (drawable form of the reference's never-drawn
     # Grid, SURVEY 2.3; blended + depth-tested against the opaque z-buffer)
     if config.grid:
-        with record_function("frame.overlay"):
+        with span("frame.overlay"):
             rgb = grid_mod.render_grid(params["inv_vp"], params["view"],
                                        params["proj"], depth_eff, rgb,
                                        y0=y0, full_height=fh)
@@ -882,12 +883,12 @@ def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
     # Anchored to a screen corner, so the whole frame only: a band skips
     # it, as the JAX package's does
     if config.show_shadow_quad and shadow_maps is not None and is_full:
-        with record_function("frame.overlay"):
+        with span("frame.overlay"):
             draw_src = (shadow_maps.blocks[0, 1:, 1:, 0] & 0xFFFF).to(
                 torch.float32) / 65535.0
             rgb = draw_textured_quad(rgb, draw_src, grayscale=True)
 
-    with record_function("frame.encode"):
+    with span("frame.encode"):
         if config.ssaa > 1:
             f = config.ssaa
             rgb = rgb.reshape(slice_h // f, f, config.width, f,
@@ -948,7 +949,7 @@ def tss_bakes(scene, u, shadow_maps, n_shadows: int, shadow_lights,
 def bake_tss(bakes, programs=None) -> None:
     """Run the bakes of ``tss_bakes``: as replays of ``programs`` (captured
     here if their key changed), or op by op without them."""
-    with record_function("frame.tss_bake"):
+    with span("frame.tss_bake"):
         for name, key, fn in bakes:
             if programs is None:
                 fn()
@@ -988,6 +989,13 @@ class FrameRenderer:
         self.device = resolve_device(device)
         self._programs = Programs(self.device,
                                   ("frame", "shadow", "vis", "tables"))
+        # the device clock stamps of the programs' passes (they outlive the
+        # graphs that write them), the records of frames rendered under
+        # torch.profiler, and the host's waits on the device (calls that
+        # block on device work other than a presented frame's copy)
+        self._stamps = profiling.Stamps(self.device)
+        self.frame_records = profiling.new_frame_trace()
+        self.host_syncs = 0
         backend = backend or "cuda"
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
@@ -1087,7 +1095,7 @@ class FrameRenderer:
             # tables. alpha_is_factor is decided on the host from the
             # texture alpha channels.
             self._baked_exposure = float(scene_host.camera.exposure)
-            with record_function("frame.tss_bake"):
+            with span("frame.tss_bake"):
                 up, self._alpha_is_factor = lightchart.setup_scene_tss(
                     self.scene_dev, config, self._slots_used,
                     self._baked_exposure, lightchart.host_alpha_is_factor(
@@ -1140,11 +1148,22 @@ class FrameRenderer:
         """``render_frame`` with the renderer's static state bound: the
         function the frame program captures."""
         cfg = self.config
-        return lambda: render_frame(
-            self.scene_dev, self._u, self._shadow_maps, cfg, self.n_shadows,
-            self.backend, self._has_translucent, self._slots_used,
-            shadow_lights=self._shadow_lights, has_mask=self._has_mask,
-            alpha_is_factor=self._alpha_is_factor)
+        stamps = self._stamps
+
+        def frame():
+            # stamped from its first operation to its last, which hands
+            # the passes' device ns out as the counter ``pass_ns``
+            with profiling.stamping(stamps):
+                stamps.enter("frame")
+                img, stats = render_frame(
+                    self.scene_dev, self._u, self._shadow_maps, cfg,
+                    self.n_shadows, self.backend, self._has_translucent,
+                    self._slots_used, shadow_lights=self._shadow_lights,
+                    has_mask=self._has_mask,
+                    alpha_is_factor=self._alpha_is_factor)
+                stats["pass_ns"] = stamps.finish()
+            return img, stats
+        return frame
 
     def _shadow_program(self):
         """The shadow pass captured at the current shadow budget and
@@ -1153,9 +1172,15 @@ class FrameRenderer:
         cfg, budget = self.config, self._shadow_budget_val
         return self._programs.get(
             "shadow", (budget, cfg.shadow_extent),
-            lambda: render_shadow_pass(
+            lambda: self._shadow_pass(cfg, budget))
+
+    def _shadow_pass(self, cfg: RenderConfig, budget: int):
+        """The shadow pass over this renderer's state, its stamps bound:
+        (maps, overflow)."""
+        with profiling.stamping(self._stamps):
+            return render_shadow_pass(
                 self.scene_dev, self._u, cfg, self.n_shadows, self.backend,
-                max_pairs=budget, return_overflow=True))
+                max_pairs=budget, return_overflow=True)
 
     def tss_bakes(self, visibility: bool) -> list:
         """The texture-space bakes over this renderer's state (module
@@ -1334,8 +1359,9 @@ class FrameRenderer:
             # REFIT coordinates against depths rendered with the old fit.
             # Caching the fit with the maps keeps sampling consistent.
             if self._shadows_dirty or self._shadow_vp_cache is None:
-                self._shadow_vp_cache = \
-                    fitting.shadow_transforms_for_scene(self.scene_host)
+                with span("host.shadow_fit"):
+                    self._shadow_vp_cache = \
+                        fitting.shadow_transforms_for_scene(self.scene_host)
             params["shadow_viewproj"] = self._shadow_vp_cache
         return params
 
@@ -1352,11 +1378,11 @@ class FrameRenderer:
                 self._shadow_program()
                 maps, sov = self._programs.replay("shadow")
             else:
-                maps, sov = render_shadow_pass(
-                    self.scene_dev, self._u, self.config, self.n_shadows,
-                    self.backend, max_pairs=self._shadow_budget_val,
-                    return_overflow=True)
-            sov = int(sov)
+                maps, sov = self._shadow_pass(self.config,
+                                              self._shadow_budget_val)
+            with span("host.shadow_read"):
+                sov = int(sov)
+            self.host_syncs += 1
             if (not self._react_overflow or sov == 0
                     or self._shadow_budget_val >= self._MAX_SHADOW_PAIRS):
                 break
@@ -1376,30 +1402,33 @@ class FrameRenderer:
     # (a memory backstop: frames finish in order, so the queue stays short)
     _MAX_PENDING = 16
 
-    def _queue_stats(self, stats: dict) -> None:
+    def _queue_stats(self, stats: dict, record: dict | None = None) -> None:
         """Start the copy of one frame's counters to the host and queue it
         for ``_poll_overflow``: one int64 vector copied into pinned memory
         with ``non_blocking=True`` on the stream that computed it, and an
         event recorded after the copy, so the event's completion means the
-        bytes have landed. On a CPU device the entry is ready at once."""
+        bytes have landed. On a CPU device the entry is ready at once.
+        ``record``: the frame's ``profiling.frame_record``, which the poll
+        hands the frame's stamps (``pass_ns``)."""
         keys = tuple(stats)
         shapes = tuple(tuple(stats[k].shape) for k in keys)
         flat = torch.cat([stats[k].reshape(-1).to(torch.int64) for k in keys])
         if flat.device.type != "cuda":
-            self._pending_overflow.append(((keys, shapes, flat), None))
+            self._pending_overflow.append(((keys, shapes, flat, record),
+                                           None))
             return
         host = torch.empty(flat.shape, dtype=torch.int64, pin_memory=True)
         stream = torch.cuda.current_stream(flat.device)
         host.copy_(flat, non_blocking=True)
         ev = torch.cuda.Event()
         ev.record(stream)
-        self._pending_overflow.append(((keys, shapes, host), ev))
+        self._pending_overflow.append(((keys, shapes, host, record), ev))
 
     @staticmethod
     def _read_stats(entry) -> dict:
         """A queued entry's counters as host values: ints, and numpy
         arrays for the per-layer counts."""
-        keys, shapes, host = entry
+        keys, shapes, host, _ = entry
         vals = host.tolist()
         out, i = {}, 0
         for k, shape in zip(keys, shapes):
@@ -1433,7 +1462,10 @@ class FrameRenderer:
                 continue        # rendered with the old budgets
             if not ready:
                 ev.synchronize()    # the queue is too deep: wait
+                self.host_syncs += 1
             st = self._read_stats(entry)
+            if entry[3] is not None and "pass_ns" in st:
+                profiling.record_stamps(entry[3], st["pass_ns"])
             if "blend_shade_tiles" in st:
                 self._observe_blend_tiles(st["blend_shade_tiles"])
             if "penumbra_tiles" in st:
@@ -1659,7 +1691,8 @@ class FrameRenderer:
 
     def render(self, view_props: ViewProperties | None = None):
         """Render one frame: returns (image [H,W,4] uint8 on the device,
-        stats dict of 0-d tensors, see ``render_frame``), the frame's own
+        stats dict of tensors, see ``render_frame``, and ``pass_ns``, the
+        device ns of the passes of ``profiling.STAMPED``), the frame's own
         tensors. Work is queued on the device; ``.cpu()`` fetches the
         image. The first frame, and the first after
         ``mark_shadows_dirty()``, also renders the shadow maps. With
@@ -1669,10 +1702,23 @@ class FrameRenderer:
         a shadow-dirty or exposure-change TSS frame, are replays of
         captured programs: a warm frame and an exposure-change frame make
         no host sync, a shadow-dirty frame one (the shadow pass's overflow
-        read, as in the JAX package)."""
+        read, as in the JAX package). Under ``torch.profiler`` the call
+        leaves a record in ``profiling.frame_trace()``."""
+        with profiling.frame_record(self.frame_records) as rec:
+            syncs = self.host_syncs
+            dirty = self.n_shadows > 0 and self._shadows_dirty
+            out = self._render(view_props, rec)
+            if rec is not None:
+                rec.update(replayed=self._graphs, dirty=dirty)
+                rec["syncs"] += self.host_syncs - syncs
+        return out
+
+    def _render(self, view_props, rec):
         if self._react_overflow:
             self._poll_overflow()
-        uniforms.upload(self._u, self.uniform_for_camera(view_props))
+        u = self.uniform_for_camera(view_props)
+        with span("host.upload"):
+            uniforms.upload(self._u, u)
         bake = False
         if self.config.texture_space:
             # exposure is folded into the static diffuse bake; a change
@@ -1687,18 +1733,24 @@ class FrameRenderer:
             self._render_shadows()
             if self.config.texture_space:
                 # the frame never gathers PCF windows: bake them per texel
-                bake_tss(self.tss_bakes(True), progs)
+                with span("host.bake"), profiling.stamping(self._stamps):
+                    bake_tss(self.tss_bakes(True), progs)
         elif bake:
-            bake_tss(self.tss_bakes(False), progs)
+            with span("host.bake"), profiling.stamping(self._stamps):
+                bake_tss(self.tss_bakes(False), progs)
         if self._graphs:
-            img, stats = self._programs.replay("frame")
+            with span("host.replay"):
+                img, stats = self._programs.replay("frame")
         else:
             img, stats = self.render_eager()
         if self._react_overflow:
-            self._queue_stats(stats)
+            with span("host.queue_stats"):
+                self._queue_stats(stats, rec)
         if self._graphs:
             # the next replay overwrites the graph's outputs
-            img, stats = img.clone(), {k: v.clone() for k, v in stats.items()}
+            with span("host.clone"):
+                img, stats = img.clone(), {k: v.clone()
+                                           for k, v in stats.items()}
         return img, stats
 
 

@@ -27,6 +27,7 @@ import time
 import torch
 
 from ..raster import cuda_raster
+from ..utils.profiling import span
 
 
 class CapturedProgram:
@@ -127,8 +128,9 @@ class Programs:
             if self.stream is None:
                 self.stream = torch.cuda.Stream(self.device)
             self.progs[name] = None
-            self.progs[name] = prog = CapturedProgram(
-                fn, self.device, self.stream, key=key)
+            with span("host.capture"):
+                self.progs[name] = prog = CapturedProgram(
+                    fn, self.device, self.stream, key=key)
             self.counts[f"{name}_captures"] += 1
         return prog
 

@@ -27,6 +27,8 @@ import torch
 
 from ..core.config import RenderConfig
 from ..device import resolve_device
+from ..utils import profiling
+from ..utils.profiling import span
 from .frame import FrameRenderer
 
 MAX_FRAMES_IN_FLIGHT = 2  # reference constants.h:7
@@ -75,10 +77,11 @@ class RenderLoop:
         event recorded after it; on the CPU the image is the host copy."""
         if img.device.type != "cuda":
             return img, img, None
-        host = torch.empty(img.shape, dtype=img.dtype, pin_memory=True)
-        host.copy_(img, non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(img.device))
+        with span("host.fetch"):
+            host = torch.empty(img.shape, dtype=img.dtype, pin_memory=True)
+            host.copy_(img, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(img.device))
         return img, host, ev
 
     def _present_oldest(self) -> None:
@@ -94,8 +97,10 @@ class RenderLoop:
         """Dispatch one frame; present the oldest once the in-flight
         window is over full. Returns the dispatched device image."""
         vp = self.view_props_fn() if self.view_props_fn else None
-        img, _ = self.renderer.render(vp)
-        self._inflight.append(self._start_fetch(img))
+        # under torch.profiler one record holds the call and the fetch
+        with profiling.frame_record(self.renderer.frame_records):
+            img, _ = self.renderer.render(vp)
+            self._inflight.append(self._start_fetch(img))
         if len(self._inflight) > MAX_FRAMES_IN_FLIGHT:
             self._present_oldest()
         self.frame_index += 1

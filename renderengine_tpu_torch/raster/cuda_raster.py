@@ -197,9 +197,30 @@ def _library():
         lib.merged_tile_launch.restype = ctypes.c_int
         lib.merged_tile_launch.argtypes = (
             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        lib.clock_stamp_launch.restype = ctypes.c_int
+        lib.clock_stamp_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p]
         lib.item_pairs = lib.raster_item_pairs()
         _lib = lib
     return _lib
+
+
+def stamp(buf: torch.Tensor, slot: int, exit_: bool,
+          out: torch.Tensor | None, n_regions: int) -> None:
+    """One device clock stamp into the int64 stamp buffer ``buf`` (see
+    ``utils/profiling.py::Stamps``) on the current stream: a region's
+    entry (``exit_`` False) or exit at ``slot``; with ``out``, the
+    ``n_regions`` durations are then copied there and cleared. Under a
+    capture it is a kernel node of the graph."""
+    lib = _library()
+    with torch.cuda.device(buf.device):
+        rc = lib.clock_stamp_launch(
+            buf.data_ptr(), slot, int(exit_),
+            None if out is None else out.data_ptr(), n_regions,
+            torch.cuda.current_stream(buf.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"clock stamp launch failed: CUDA error {rc}")
 
 
 class _Workspace:

@@ -21,8 +21,10 @@ prints one JSON line with both, labelled:
   ``frame.raster`` or ``frame.merged_raster``, ``frame.shade``,
   ``frame.mask``, ``frame.sky``, ``frame.peel_raster``,
   ``frame.peel_shade``, ``frame.overlay``, ``frame.encode``, named in
-  ``graph/frame.py``) the device ms per frame. The spans fire only while
-  the pass chain is dispatched, so a replayed frame has none;
+  ``graph/frame.py``, listed in ``utils/profiling.SPANS``) the device ms
+  per frame. The ranges fire only while the pass chain is dispatched, so
+  a replayed frame has none (its passes' device time is in its clock
+  stamps: ``utils/profiling.frame_trace()``);
 - ``replayed``: warm ``render()`` calls, each a replay of the captured
   frame program: the frame as it runs (``captures_in_window`` counts the
   recaptures inside it, which should be 0).
@@ -51,10 +53,7 @@ from pathlib import Path
 
 import torch
 
-SPANS = ("frame.shadow", "frame.tss_bake", "frame.tss_spec", "frame.setup",
-         "frame.bin_pack", "frame.raster", "frame.merged_raster",
-         "frame.shade", "frame.mask", "frame.sky", "frame.peel_raster",
-         "frame.peel_shade", "frame.overlay", "frame.encode")
+from ..utils.profiling import SPANS
 
 
 def _card() -> str:
@@ -76,6 +75,11 @@ def _union_us(intervals) -> float:
             total += b - end
             end = b
     return total
+
+
+def _annotation(name: str) -> bool:
+    """A range's device-side annotation (a span's), not device work."""
+    return name in SPANS or name.startswith("host.")
 
 
 def profiled(fn, frames: int, trace_dir: str | None) -> dict:
@@ -102,13 +106,13 @@ def profiled(fn, frames: int, trace_dir: str | None) -> dict:
         if e.device_type != cuda and e.name in SPANS:
             spans[e.name] += e.device_time_total / 1e3 / frames
     kernels = [e for e in prof.key_averages()
-               if e.device_type == cuda and e.key not in SPANS]
+               if e.device_type == cuda and not _annotation(e.key)]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     top = [{"name": e.key[:90], "ms_per_frame":
             e.self_device_time_total / 1e3 / frames,
             "calls_per_frame": e.count / frames} for e in kernels[:12]]
     ivals = [(e.time_range.start, e.time_range.end) for e in prof.events()
-             if e.device_type == cuda and e.name not in SPANS]
+             if e.device_type == cuda and not _annotation(e.name)]
     busy_ms = _union_us(ivals) / 1e3
     return {"wall_ms_per_frame": wall_ms / frames,
             "device_busy_ms_per_frame": busy_ms / frames,
