@@ -6,7 +6,8 @@ Run from the repository root on a machine with one CUDA card:
 
 It builds every kernel of the port's paths from the sources in the
 checkout (the tile raster K1 and the merged raster K2, both in
-``csrc/raster_tile.cu``, one ``nvcc``), holds each kernel against its plain PyTorch version on the card (random
+``csrc/raster_tile.cu``, and the tiered anisotropic sampler,
+``csrc/aniso_slots.cu``: one ``nvcc``), holds each kernel against its plain PyTorch version on the card (random
 triangles in every mode; the dense-tile stress scene of
 ``tools/split_stress.py``, whose tile the kernels split into 8 work items
 and more and merge, with forced ties (phase split-stress); then every
@@ -121,7 +122,13 @@ Sponza (260k triangles, 200 textures of 512^2), checking their output:
   the phase's frames. Then the workspace check: the headline renderer of
   phase orbit, captured before the 4K launches grew the split walk's
   workspace (its graph keeps the older tensors), replays its frame at an
-  orbit pose byte-equal to its frame there from before the growth.
+  orbit pose byte-equal to its frame there from before the growth;
+- the tiered anisotropic sampler (phase aniso): the per-pixel default
+  settles over ``ANISO_SETTLE`` orbit frames (3 sampler launches a
+  frame), and at pose ``ANISO_POSE`` its eager frame's opaque call
+  (1920x1080) and first peel layer shaded on its compacted pseudo-image
+  (128 wide) are held bit for bit against the plain version and timed,
+  each beside its bytes bound (``aniso_bound``: the taps actually taken).
 Each phase is fatal: any failure exits non-zero without the final line.
 Before the last line it prints the card's name and power limit (as
 ``nvidia-smi`` reports them), one JSON line of per-kernel numbers and one
@@ -180,6 +187,11 @@ TSS_FRAMES = 3
 # and of the per-pixel default's round; the pose held to eager and the
 # one the workspace check replays
 ORBIT_FRAMES, ORBIT_PP_FRAMES, POSE, WS_POSE = 30, 8, 7, 11
+# phase aniso: the per-pixel default settles over the orbit's first
+# ANISO_SETTLE frames (the benchmark's pp.orbit settles 192), then its
+# sampler calls are taken at pose ANISO_POSE, inside the benchmark's window
+ANISO_SETTLE, ANISO_POSE = 192, 300
+ANISO_SOURCE = "renderengine_tpu_torch/csrc/aniso_slots.cu"
 # history, not measured by this run: the one-block-per-tile kernels'
 # times before the split walk on an NVIDIA H100 80GB HBM3 at 700.00 W
 # (PERF.md, from this script as it was then), and the warm frames
@@ -220,9 +232,12 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int, sessions: int = 3) -> float | None:
-    """Device-side duration of one launch of the raster kernel (K1 or K2)
-    that ``fn`` launches: the mean over the kernel's records in
+def device_ms(fn, reps: int, sessions: int = 3,
+              kernels=("raster_tile_kernel", "merged_tile_kernel")
+              ) -> float | None:
+    """Device-side duration of one launch of the kernel (by default the
+    raster kernel, K1 or K2; ``kernels``: substrings of the kernel's
+    name) that ``fn`` launches: the mean over the kernel's records in
     ``torch.profiler`` sessions of ``reps`` calls (after one warm-up
     call). The profiler has shown fewer records than launches for some
     launch shapes, so up to ``sessions`` sessions run until one shows all
@@ -242,9 +257,8 @@ def device_ms(fn, reps: int, sessions: int = 3) -> float | None:
             log(f"  torch.profiler failed ({e!r}): device time not measured")
             return None
         got = [e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == cuda and ("raster_tile_kernel" in e.name
-                                             or "merged_tile_kernel"
-                                             in e.name)]
+               if e.device_type == cuda
+               and any(k in e.name for k in kernels)]
         us += got
         if len(got) >= reps:
             break
@@ -791,6 +805,155 @@ def workspace_phase(cr, keep, scene, dev):
     if not (res["grown"] and res["equal"]) or res["recaptures"]:
         raise AssertionError(f"workspace check: {res}")
     return res
+
+
+def aniso_bound(args, spec, caps, seg_w: int):
+    """The least time the card could take for one tiered sampler launch
+    on ``args``: (ms, bytes, bilinear taps). Bytes: the per-pixel planes
+    read once (uv and its two derivatives, 24 B; six int32 planes a slot,
+    24 B), each slot's rgba written once (16 B), and one 2x2 block (16 B
+    u8, 32 B u16) for every bilinear tap actually taken: two a trilinear
+    tap, one trilinear tap a pixel and slot at the isotropic lod, and
+    clamp(n, 1, taps_s) more where the pixel's row segment is selected
+    for its tier (``sampling.aniso_slots``'s selection, recomputed)."""
+    from renderengine_tpu_torch.shading import sampling
+
+    atlas, _, _, slots, uv, dx, dy = args
+    h, w = uv.shape[:2]
+    ntx, _ = sampling.row_segments(h, w, seg_w)
+    caps = caps or (spec.max_taps,) * len(slots)
+    tri = len(slots) * h * w
+    n, tiers = sampling.tier_selections(dx, dy, spec, seg_w)
+    for taps, member, sel, _ in tiers:
+        have = torch.zeros((h, ntx), dtype=torch.bool, device=n.device)
+        have.scatter_(1, sel, True)
+        have = have.repeat_interleave(seg_w, 1)[:, :w]
+        for c in caps:
+            taps_s = min(taps, c)
+            if taps_s > 1:
+                tri += int(n.clamp(1.0, float(taps_s))[member & have].sum())
+    taps = 2 * tri
+    bytes_moved = (h * w * 24 + len(slots) * h * w * (24 + 16)
+                   + taps * 4 * atlas.shape[3])
+    return bytes_moved / HBM_BYTES_PER_S * 1e3, bytes_moved, taps
+
+
+def aniso_phase(fr, cr, scene, pp_cfg, dev, reset_counts):
+    """Phase aniso: the tiered anisotropic sampler's kernel at the main
+    path's shapes. The per-pixel default at 1080p settles over the orbit's
+    first ``ANISO_SETTLE`` frames through the controller and the captured
+    frame (as the benchmark's pp.orbit does), renders pose ``ANISO_POSE``,
+    and its eager frame there records the sampler's calls: the opaque
+    layer's full frame and the first peel layer shaded on its 128-wide
+    pseudo-image (under the full-frame budget the controller chose). Each call's kernel equals the plain
+    version bit for bit and is timed (CUDA-event median of 3 rounds of 30,
+    in a graph, the profiler's device time, the host time a call) beside
+    its bound (``aniso_bound``) and the plain version's time. Returns the
+    two kernel rows and the phase's record."""
+    import bench_torch
+    from renderengine_tpu_torch.shading import sampling
+
+    t_phase = time.time()
+    orbit = bench_torch.Orbit(scene.camera)
+    rows, res = [], {}
+    try:
+        r = fr.FrameRenderer(scene, pp_cfg)
+        reset_counts()
+        p0 = dict(r.program_counts)
+        for i in range(ANISO_SETTLE):
+            r.render(orbit.vp(i))
+        r.render(orbit.vp(ANISO_POSE))
+        torch.cuda.synchronize()
+        launches = cr.launch_counts["aniso_slots"]
+        caps = counts_delta(p0, r.program_counts)
+        # a replay and a capture's warm-up frame each run the frame
+        frames = caps["frame_replays"] + caps["frame_captures"]
+        res.update({"launches": launches, "frames": frames,
+                    "programs": caps,
+                    "blend_layer_tile_budgets":
+                        list(r.config.blend_layer_tile_budgets)})
+        if launches != 3 * frames:
+            raise AssertionError(f"aniso: {launches} launches over "
+                                 f"{frames} frames, not 3 a frame")
+        r._react_overflow = False
+        calls = []
+        real = sampling.sample_slots_aniso_tiered
+
+        def record(*a, **k):
+            calls.append((a, k))
+            return real(*a, **k)
+
+        with mock.patch.object(sampling, "sample_slots_aniso_tiered",
+                               record):
+            r.render_eager()
+        torch.cuda.synchronize()
+        # the opaque call, and the first peel layer shaded on its
+        # compacted pseudo-image (a layer at the full-frame budget is
+        # shaded dense)
+        peel = [c for c in calls[1:]
+                if c[0][4].shape[1] != calls[0][0][4].shape[1]]
+        if len(calls) != 3 or not peel:
+            raise AssertionError(f"aniso: {len(calls)} sampler calls, "
+                                 f"none of them a pseudo-image")
+        for name, (a, k) in (("aniso_slots", calls[0]),
+                             ("aniso_slots_peel", peel[0])):
+            atlas, mip_y, mip_x, slots, uv, dx, dy, spec = a
+            caps, seg_w = k.get("slot_caps"), k.get("seg_w", 128)
+            slots = [({key: tex[key].contiguous()
+                       for key in sampling._PLANE_KEYS}, nm.contiguous())
+                     for tex, nm in slots]
+            args = (atlas, mip_y, mip_x, slots, uv.contiguous(),
+                    dx.contiguous(), dy.contiguous())
+
+            def kern(args=args, spec=spec, caps=caps, seg_w=seg_w):
+                return sampling.aniso_slots(*args, spec, slot_caps=caps,
+                                            seg_w=seg_w)
+
+            got = kern()
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            want = sampling.sample_slots_aniso_tiered_plain(
+                *args, spec, slot_caps=caps, seg_w=seg_w)
+            t1.record()
+            torch.cuda.synchronize()
+            plain_ms = t0.elapsed_time(t1)
+            exact = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                        for x, y in zip(got, want))
+            err = max(max_abs_err(x, y) for x, y in zip(got, want))
+            log(f"  aniso vs plain [{name}, {tuple(uv.shape[:2])}, "
+                f"{len(slots)} slots]: exact={exact}, max_abs_err={err!r}")
+            if not exact:
+                raise AssertionError(f"aniso_slots disagrees ({name})")
+            rounds = [cuda_ms(kern, 30) for _ in range(3)]
+            bound_ms, bytes_moved, taps = aniso_bound(args, spec, caps,
+                                                      seg_w)
+            t = {"ms": statistics.median(rounds), "rounds_ms": rounds,
+                 "in_graph_ms": graph_ms(kern, 30),
+                 "device_ms": device_ms(kern, 10,
+                                        kernels=("aniso_slots_kernel",)),
+                 "host_ms": host_ms(kern, 30)}
+            log(f"  times [{name}]: {t}")
+            rows.append({
+                "name": name, "route": "cuda", "source": ANISO_SOURCE,
+                "replaces": None, "launches": launches,
+                "max_abs_err": err, "ms": t["ms"], "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": "bytes",
+                "library_ms": None, "in_graph_ms": t["in_graph_ms"],
+                "densest_tile_ms": None, "launch_over_densest": None,
+                "device_ms": t["device_ms"], "host_ms": t["host_ms"],
+                "pairs": None})
+            res[name] = {"shape": list(uv.shape[:2]), "slots": len(slots),
+                         "bytes": bytes_moved, "bilinear_taps": taps,
+                         "rounds_ms": rounds}
+            del got, want
+        del r, calls
+        torch.cuda.empty_cache()
+    finally:
+        orbit.restore()
+    res["wall_s"] = time.time() - t_phase
+    log(f"phase aniso: {res}")
+    return rows, res
 
 
 def main() -> None:
@@ -1905,6 +2068,16 @@ def main() -> None:
     except Exception as e:  # noqa: BLE001
         fail(phase, e)
 
+    # phase: the tiered anisotropic sampler's kernel at the per-pixel
+    # frame's opaque and peel shapes, bit-exact against its plain version
+    # and timed
+    phase = "aniso"
+    try:
+        aniso_rows, aniso_res = aniso_phase(fr, cr, scene, pp_cfg, dev,
+                                            reset_counts)
+    except Exception as e:  # noqa: BLE001
+        fail(phase, e)
+
     # phase: the compiled frame. For the per-pixel default, the TSS
     # headline and the app's per-pixel config (2048^2 maps), each with the
     # poll on: the renderer captures its frame and shadow programs at init
@@ -2749,7 +2922,7 @@ def main() -> None:
     ] + [row(name, b["launches"], b["err"], times[name]["ms"],
              b["plain_ms"], b["bound"][0], b["bound"][1],
              k2=name.startswith("merged"), pairs=b["pairs"])
-         for name, b in ssaa2_rows.items()]
+         for name, b in ssaa2_rows.items()] + aniso_rows
     for k in kernels:
         log(f"{k['name']}: {k['ms']!r} ms in this run, in a graph "
             f"{k['in_graph_ms']!r} ms, device "
@@ -2812,6 +2985,7 @@ def main() -> None:
                         "launches_app_path": app_shadow_launches},
         "graph": graph_res, "app": app, "sharded": sharded_res,
         "orbit": orbit_res, "ssaa2": ssaa2_res, "workspace": ws_res,
+        "aniso": aniso_res,
         "ssaa2_kernels": {k: {"ops": b["bound"][2], "bytes": b["bound"][3]}
                           for k, b in ssaa2_rows.items()},
         "width": SPONZA_W, "height": SPONZA_H, "card": card,

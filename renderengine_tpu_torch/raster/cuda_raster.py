@@ -30,6 +30,10 @@ Ids ride as integer-valued floats (exact below 2^24).
 On a CPU tensor ``raster_tiles`` runs ``_raster_tiles_plain`` (and
 ``merged_tiles`` ``_merged_tiles_plain``); on a CUDA tensor each launches
 its kernel or raises — there is no fallback.
+
+The kernels' library also holds the tiered anisotropic sampler
+(``csrc/aniso_slots.cu``, wrapped by ``shading.sampling.aniso_slots``),
+counted here beside K1 and K2.
 """
 
 from __future__ import annotations
@@ -60,6 +64,8 @@ MAT_LIMIT = 1 << 24       # ids must stay exact as integer-valued f32
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "raster_tile.cu"          # K1 and K2
+# every source of the one library: K1, K2 and the tiered aniso sampler
+SOURCES = (SOURCE, _PKG / "csrc" / "aniso_slots.cu")
 BUILD_DIR = _PKG / "build"
 K1_ATTRS = (0, 4, 8)      # the attribute counts K1 is built for
 K2_ATTRS = 4              # attributes a K2 pair row carries
@@ -67,11 +73,12 @@ K2_ATTRS_B = (2, 4)       # attribute prefixes K2's blend layers interpolate
 
 # launches of the kernels (plain-version runs do not count): the totals,
 # and the same launches by variant: (n_attrs, peel, dual) for K1,
-# ("merged", n_attrs_b) for K2. A call during a CUDA graph capture launches
-# nothing: ``graph.program.CapturedProgram`` moves the counts of its capture
-# into its own record and adds them back at each replay, which launches
-# the kernels
-launch_counts = {"raster_tile": 0, "merged_tile": 0}
+# ("merged", n_attrs_b) for K2; ``aniso_slots`` counts the tiered aniso
+# sampler (``shading.sampling.aniso_slots``). A call during a CUDA graph
+# capture launches nothing: ``graph.program.CapturedProgram`` moves the
+# counts of its capture into its own record and adds them back at each
+# replay, which launches the kernels
+launch_counts = {"raster_tile": 0, "merged_tile": 0, "aniso_slots": 0}
 # other device work of the wrappers, counted apart: the zeroing of a new
 # or grown workspace (a memset, once per device and size)
 helper_counts = {"workspace_zero": 0}
@@ -158,11 +165,11 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile ``csrc/raster_tile.cu`` into ``build/`` (once per source
-    content) and return the shared library's path. The ptxas report
+    """Compile ``SOURCES`` into one library in ``build/`` (once per
+    content of the sources) and return its path. The ptxas report
     (registers, shared memory, spills) is kept beside it as ``.log``."""
-    src = SOURCE.read_bytes()
-    so = BUILD_DIR / f"libraster_tile_{hashlib.sha1(src).hexdigest()[:12]}.so"
+    digest = hashlib.sha1(b"".join(p.read_bytes() for p in SOURCES))
+    so = BUILD_DIR / f"libraster_tile_{digest.hexdigest()[:12]}.so"
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -170,7 +177,8 @@ def build() -> Path:
     os.close(fd)
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
            "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
-           "-shared", "-Xcompiler", "-fPIC", "-o", tmp, str(SOURCE)]
+           "-shared", "-Xcompiler", "-fPIC", "-o", tmp,
+           *map(str, SOURCES)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         os.unlink(tmp)
@@ -201,6 +209,12 @@ def _library():
         lib.clock_stamp_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_void_p]
+        lib.aniso_slots_launch.restype = ctypes.c_int
+        lib.aniso_slots_launch.argtypes = (
+            [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 3
+            + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+            + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+            + [ctypes.c_void_p] * 2)
         lib.item_pairs = lib.raster_item_pairs()
         _lib = lib
     return _lib

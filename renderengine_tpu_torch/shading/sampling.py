@@ -12,10 +12,17 @@ The atlas and block tables arrive as int32 bit views of the u32 words
 arithmetic shift and a mask, ``(w >> s) & mask``, which is exact on int32.
 Small-table row fetches are plain index gathers (the JAX package's one-hot
 matmul there is a TPU device, and a TF32 matmul would not be exact).
+
+The tiered anisotropic sampler of several slots (``aniso_slots``) is one
+hand-written CUDA kernel on a CUDA device (``csrc/aniso_slots.cu``, in the
+kernels' library of ``raster.cuda_raster``); its plain version,
+``sample_slots_aniso_tiered_plain``, runs on the CPU and is the kernel's
+comparison on the card.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -464,11 +471,29 @@ def _slot_rho2(tex, duv_dx, duv_dy):
 
 
 _PLANE_KEYS = ("page", "x", "y", "w", "h")
+# what one ``aniso_slots`` launch carries (``csrc/aniso_slots.cu``:
+# kMaxSlots, kMaxTiers)
+ANISO_MAX_SLOTS = 4
+ANISO_MAX_TIERS = 8
 
 
 def sample_slots_aniso_tiered(atlas, mip_y, mip_x, slots, uv,
                               duv_dx, duv_dy, spec: AnisoSpec,
                               slot_caps=None, seg_w: int = 128):
+    """``sample_slots_aniso_tiered_plain``'s result through ``aniso_slots``:
+    one kernel launch on a CUDA device, the plain version on the CPU. The
+    inputs are made contiguous first (the fragment's uv is a view of its
+    attribute planes)."""
+    slots = [({k: tex[k].contiguous() for k in _PLANE_KEYS}, nm.contiguous())
+             for tex, nm in slots]
+    return aniso_slots(atlas, mip_y, mip_x, slots, uv.contiguous(),
+                       duv_dx.contiguous(), duv_dy.contiguous(), spec,
+                       slot_caps, seg_w)
+
+
+def sample_slots_aniso_tiered_plain(atlas, mip_y, mip_x, slots, uv,
+                                    duv_dx, duv_dy, spec: AnisoSpec,
+                                    slot_caps=None, seg_w: int = 128):
     """Exact anisotropic taps at compacted cost for SEVERAL texture slots
     sharing one footprint decision.
 
@@ -533,6 +558,114 @@ def sample_slots_aniso_tiered(atlas, mip_y, mip_x, slots, uv,
             outs[si] = torch.where(hit, scat, outs[si])
         prev = taps
     return outs
+
+
+def tier_selections(duv_dx, duv_dy, spec: AnisoSpec, seg_w: int = 128):
+    """The tiered sampler's decisions, as ``sample_slots_aniso_tiered_plain``
+    takes them: the footprint's tap count n [H, W] and, for each tier of
+    ``tap_ladder(spec)``, (taps, member [H, W] bool, sel [H, k] int64, k):
+    the tier's pixels and its per-row selected segments."""
+    n, _ = _uv_footprint(duv_dx, duv_dy, spec.max_taps)
+    tiers, prev = [], 1.0
+    for taps, frac in zip(tap_ladder(spec), spec.tile_fracs):
+        member = (n > prev) & ((n <= taps) if taps < spec.max_taps
+                               else torch.ones_like(n, dtype=torch.bool))
+        tiers.append((taps, member, *select_row_segments(member, seg_w, frac)))
+        prev = taps
+    return n, tiers
+
+
+def _check_aniso_args(atlas, mip_y, mip_x, slots, uv, duv_dx, duv_dy,
+                      spec: AnisoSpec, slot_caps) -> None:
+    """``aniso_slots``'s argument checks, on any device."""
+    if uv.dim() != 3 or uv.shape[2] != 2:
+        raise ValueError("uv must be [H, W, 2]")
+    hw = tuple(uv.shape[:2])
+    if not 1 <= len(spec.tile_fracs) <= ANISO_MAX_TIERS:
+        raise ValueError(f"the tier ladder holds 1 to {ANISO_MAX_TIERS} "
+                         "tiers")
+    if len(slots) > ANISO_MAX_SLOTS:
+        raise ValueError(f"at most {ANISO_MAX_SLOTS} slots a call")
+    if slot_caps is not None and len(slot_caps) != len(slots):
+        raise ValueError("one tap cap per slot")
+    if atlas.dtype != torch.int32 or atlas.dim() != 4 \
+            or atlas.shape[3] not in (4, 8):
+        raise TypeError("atlas must be int32 [pages, ah, aw, 4 or 8]")
+    floats = {"uv": uv, "duv_dx": duv_dx, "duv_dy": duv_dy}
+    ints = {"mip_y": mip_y, "mip_x": mip_x}
+    for si, (tex, nm) in enumerate(slots):
+        ints.update({f"slot {si} {k}": tex[k] for k in _PLANE_KEYS})
+        ints[f"slot {si} n_mips"] = nm
+    for name, t in {**floats, **ints}.items():
+        if t.dtype != (torch.float32 if name in floats else torch.int32):
+            raise TypeError(f"{name} must be "
+                            f"{'float32' if name in floats else 'int32'}")
+        if name in ("mip_y", "mip_x"):
+            if t.dim() != 1:
+                raise ValueError(f"{name} must be [levels]")
+        elif tuple(t.shape) != (hw + (2,) if name in floats else hw):
+            raise ValueError(f"{name} must match uv's [H, W]")
+    tensors = [atlas, *floats.values(), *ints.values()]
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("aniso_slots inputs must be contiguous")
+    dev = uv.device
+    if any(t.device != dev for t in tensors):
+        raise ValueError("aniso_slots inputs must share one device")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError("aniso_slots runs on a CUDA device or the CPU")
+    # the kernel loads atlas blocks as 16-byte and uv pairs as 8-byte words
+    if atlas.data_ptr() % 16 or any(t.data_ptr() % 8
+                                    for t in floats.values()):
+        raise ValueError("atlas must start on 16 bytes, uv planes on 8")
+
+
+def aniso_slots(atlas, mip_y, mip_x, slots, uv, duv_dx, duv_dy,
+                spec: AnisoSpec, slot_caps=None, seg_w: int = 128):
+    """The tiered sampler's kernel (``csrc/aniso_slots.cu``): the
+    arguments of ``sample_slots_aniso_tiered_plain`` (contiguous, int32
+    planes, float32 uv planes), checked on every device. CPU tensors take
+    the plain version. On a CUDA device the footprint's tier membership
+    and each tier's per-row segment selection run here in PyTorch
+    (``select_row_segments``, a small sort), and ONE launch computes every
+    slot's result in place of the plain version's gathers, tap loops and
+    scatters; it returns views of one [n_slots, H, W, 4] output and never
+    synchronises."""
+    _check_aniso_args(atlas, mip_y, mip_x, slots, uv, duv_dx, duv_dy, spec,
+                      slot_caps)
+    if uv.device.type == "cpu":
+        return sample_slots_aniso_tiered_plain(
+            atlas, mip_y, mip_x, slots, uv, duv_dx, duv_dy, spec,
+            slot_caps=slot_caps, seg_w=seg_w)
+    if not slots:
+        return []
+    from ..raster import cuda_raster
+    h, w = uv.shape[:2]
+    caps = (spec.max_taps,) * len(slots) if slot_caps is None else slot_caps
+    sels, tiers = [], []
+    for taps, _, sel, k in tier_selections(duv_dx, duv_dy, spec, seg_w)[1]:
+        sels.append(sel)
+        tiers += [sel.stride(0), k, taps] + [min(taps, c) for c in caps] \
+            + [0] * (ANISO_MAX_SLOTS - len(slots))
+    out = torch.empty((len(slots), h, w, 4), dtype=torch.float32,
+                      device=uv.device)
+    planes = [t.data_ptr() for tex, nm in slots
+              for t in [tex[k] for k in _PLANE_KEYS] + [nm]]
+    lib = cuda_raster._library()
+    with torch.cuda.device(uv.device):
+        rc = lib.aniso_slots_launch(
+            atlas.data_ptr(), atlas.shape[0] * atlas.shape[1] * atlas.shape[2],
+            atlas.shape[1], atlas.shape[2], atlas.shape[3],
+            mip_x.data_ptr(), mip_y.data_ptr(), uv.data_ptr(),
+            duv_dx.data_ptr(), duv_dy.data_ptr(),
+            (ctypes.c_void_p * len(planes))(*planes), len(slots), h, w,
+            (ctypes.c_void_p * len(sels))(*[s.data_ptr() for s in sels]),
+            (ctypes.c_int * len(tiers))(*tiers), len(sels), seg_w,
+            spec.max_taps, out.data_ptr(),
+            torch.cuda.current_stream(uv.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"aniso_slots launch failed: CUDA error {rc}")
+    cuda_raster.launch_counts["aniso_slots"] += 1
+    return list(out.unbind(0))
 
 
 def sample_texture_aniso_tiered(atlas, mip_y, mip_x, tex, n_mips, uv,

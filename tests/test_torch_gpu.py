@@ -1,5 +1,6 @@
 """Tests of the port that need a CUDA card: K1 and K2 (both in
-``csrc/raster_tile.cu``) against their plain PyTorch versions, and
+``csrc/raster_tile.cu``) and the tiered anisotropic sampler
+(``csrc/aniso_slots.cu``) against their plain PyTorch versions, and
 golden and texture-space frames rendered through the kernels. They skip
 without a card. This file imports no JAX, so it
 also runs where only PyTorch is installed:
@@ -13,13 +14,18 @@ attributes): both evaluate every plane as
 (a*px + b*py) + c with IEEE rounding and no contraction, divide with IEEE
 division and select the same fragments (the kernels split a dense tile's
 walk into work items and merge them exactly; the stress-scene cases hold
-that, ties included)."""
+that, ties included). The sampler kernel equals its plain version bit for
+bit too (every multiply, add, divide and square root rounded on its own,
+the same integer arithmetic), and the per-pixel frame through it equals
+the frame through the plain sampler byte for byte."""
 
 import os
 
 import numpy as np
 import pytest
 import torch
+
+import aniso_inputs as ai
 
 from renderengine_tpu_torch.core.config import CullMode, RenderConfig
 from renderengine_tpu_torch.graph import frame as fr
@@ -28,6 +34,7 @@ from renderengine_tpu_torch.graph.render_loop import RenderLoop
 from renderengine_tpu_torch.scene import procedural
 from renderengine_tpu_torch.raster import cuda_raster as cr
 from renderengine_tpu_torch.raster.setup import restrict_rows, triangle_setup
+from renderengine_tpu_torch.shading import sampling
 from renderengine_tpu_torch.tools import goldens
 from renderengine_tpu_torch.tools import split_stress as ss
 
@@ -898,3 +905,214 @@ def test_captured_launch_outlives_a_workspace_growth(cuda_device):
     out = prog.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, want)
+
+
+# --- the tiered anisotropic sampler (csrc/aniso_slots.cu) -------------------
+
+def _aniso_exact(args, spec, caps, seg_w=128):
+    """The kernel's slots against the plain version's, bit for bit (the
+    int32 views: NaNs and signed zeros too); returns the kernel's."""
+    got = sampling.aniso_slots(*args, spec, slot_caps=caps, seg_w=seg_w)
+    want = sampling.sample_slots_aniso_tiered_plain(*args, spec,
+                                                    slot_caps=caps,
+                                                    seg_w=seg_w)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), \
+            float((a - b).abs().max())
+    return got
+
+
+# (H, W, words, slots used, spec, seg_w): the 1080p frame's shape, a peel
+# pseudo-image one segment wide (every tier runs on every pixel), the
+# 3840x2160 ``ssaa=2`` plane, u16 beside u8, a slot no material uses, a
+# ladder with every segment selected and one with 32-wide segments
+ANISO_CASES = {
+    "frame_u8": (1080, 1920, 4, (0, 1, 2, 3), ai.DEFAULT_SPEC, 128),
+    "frame_u16": (1080, 1920, 8, (0, 1, 2, 3), ai.DEFAULT_SPEC, 128),
+    "peel_u8": (1080, 128, 4, (0, 1, 2, 3), ai.DEFAULT_SPEC, 128),
+    "peel_u16": (520, 128, 8, (0, 1, 2, 3), ai.DEFAULT_SPEC, 128),
+    "ssaa2_u8": (2160, 3840, 4, (0, 1, 2, 3), ai.DEFAULT_SPEC, 128),
+    "three_slots": (270, 480, 4, (0, 2, 3), ai.DEFAULT_SPEC, 128),
+    "all_selected": (136, 512, 8, (0, 1, 2, 3),
+                     sampling.AnisoSpec(16, (1.0, 1.0, 1.0)), 128),
+    "seg32": (64, 333, 4, (0, 1, 3),
+              sampling.AnisoSpec(8, (0.5, 0.25), (8, 1, 2, 4)), 32),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(ANISO_CASES))
+def test_aniso_kernel_matches_plain(cuda_device, case):
+    h, w, words, used, spec, seg_w = ANISO_CASES[case]
+    args = ai.to(ai.case(40 + len(case), h, w, words=words, used=used),
+                 cuda_device)
+    caps = None if not spec.slot_caps else [spec.slot_caps[s] for s in used]
+    before = cr.launch_counts["aniso_slots"]
+    _aniso_exact(args, spec, caps, seg_w)
+    assert cr.launch_counts["aniso_slots"] == before + 1
+
+
+@pytest.mark.gpu
+def test_aniso_kernel_makes_no_host_sync(cuda_device):
+    """The wrapper selects the segments and launches from shapes alone,
+    and a row band of the planes gives the whole plane's rows (the
+    selection is per row)."""
+    args = ai.to(ai.case(7, 96, 640), cuda_device)
+    full = sampling.aniso_slots(*args, ai.DEFAULT_SPEC)     # loads
+    torch.cuda.synchronize()
+    atlas, mip_y, mip_x, sl, uv, dx, dy = args
+    band = [({k: v[40:].contiguous() for k, v in tex.items()},
+             nm[40:].contiguous()) for tex, nm in sl]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rows = sampling.aniso_slots(atlas, mip_y, mip_x, band,
+                                    uv[40:].contiguous(),
+                                    dx[40:].contiguous(),
+                                    dy[40:].contiguous(), ai.DEFAULT_SPEC)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for a, b in zip(rows, full):
+        assert torch.equal(a, b[40:])
+
+
+@pytest.mark.gpu
+def test_aniso_kernel_refuses_bad_inputs(cuda_device):
+    atlas, mip_y, mip_x, sl, uv, dx, dy = ai.to(ai.case(8, 16, 64),
+                                                cuda_device)
+    with pytest.raises(ValueError, match="one device"):
+        sampling.aniso_slots(atlas, mip_y, mip_x, sl, uv.cpu(), dx, dy,
+                             ai.DEFAULT_SPEC)
+    odd = uv.view(-1)[1:1 + 16 * 63 * 2].view(16, 63, 2)    # 4-byte offset
+    sl63 = [({k: v[:, 1:].contiguous() for k, v in tex.items()},
+             nm[:, 1:].contiguous()) for tex, nm in sl]
+    with pytest.raises(ValueError, match="uv planes on 8"):
+        sampling.aniso_slots(atlas, mip_y, mip_x, sl63, odd,
+                             dx[:, 1:].contiguous(), dy[:, 1:].contiguous(),
+                             ai.DEFAULT_SPEC)
+
+
+def _sponza1080():
+    """The benchmark's per-pixel scene and configuration at 1080p."""
+    return procedural.sponza_scene(width=1920, height=1080, n_textures=200,
+                                   target_tris=260_000)
+
+
+def _orbit_pose(sc, i):
+    """Pose ``i`` of the benchmark's orbit: the scene's eye turned 0.02 *
+    i rad about the world's +y axis."""
+    e = np.asarray(sc.camera.eye, np.float32)
+    a = 0.02 * i
+    sc.camera.set_camera_view(
+        np.array([e[0] * np.cos(a) - e[2] * np.sin(a), e[1],
+                  e[0] * np.sin(a) + e[2] * np.cos(a)], np.float32),
+        sc.camera.look_at, np.array([0, 1, 0], np.float32))
+
+
+def _sampler_calls(monkeypatch, render):
+    """The tiered sampler's arguments in each call of ``render()``
+    (contiguous copies), in call order."""
+    calls = []
+    real = sampling.sample_slots_aniso_tiered
+
+    def record(atlas, mip_y, mip_x, slots, uv, duv_dx, duv_dy, spec,
+               slot_caps=None, seg_w=128):
+        calls.append(((atlas, mip_y, mip_x,
+                       [({k: tex[k].clone() for k in ai.PLANES}, nm.clone())
+                        for tex, nm in slots],
+                       uv.contiguous().clone(), duv_dx.clone(),
+                       duv_dy.clone()), spec, slot_caps, seg_w))
+        return real(atlas, mip_y, mip_x, slots, uv, duv_dx, duv_dy, spec,
+                    slot_caps, seg_w)
+
+    with monkeypatch.context() as m:
+        m.setattr(sampling, "sample_slots_aniso_tiered", record)
+        render()
+    return calls
+
+
+@pytest.mark.gpu
+def test_aniso_kernel_on_the_sponza_frame(cuda_device, monkeypatch):
+    """The 1080p Sponza default per-pixel frame at pose 300 of the
+    benchmark's orbit: the sampler's three calls (the opaque layer's full
+    frame and the two peel layers' 128-wide pseudo-images, where every
+    tier runs on every pixel) and a row band of the opaque call, kernel
+    against plain bit for bit; every replay of the captured frame counts
+    three launches; and the whole eager frame through the kernel equals,
+    byte for byte, the eager frame with the plain sampler."""
+    sc = _sponza1080()
+    r = FrameRenderer(sc, RenderConfig(width=1920, height=1080,
+                                       shadow_extent=4096))
+    _orbit_pose(sc, 300)
+    r._react_overflow = False
+    # peel budgets under the 2025 shade tiles: both layers go through
+    # shade_sparse, as in the benchmark's settled window
+    r.config = r.config.replace(blend_layer_tile_budgets=(600, 300))
+    for _ in range(2):
+        r.render()
+        torch.cuda.synchronize()
+    before = cr.launch_counts["aniso_slots"]
+    for _ in range(2):
+        r.render()
+    torch.cuda.synchronize()
+    assert cr.launch_counts["aniso_slots"] == before + 6
+
+    calls = _sampler_calls(monkeypatch, r.render_eager)
+    assert len(calls) == 3
+    assert calls[0][0][4].shape[:2] == (1080, 1920)
+    assert all(c[0][4].shape[1] == 128 for c in calls[1:])
+    for args, spec, caps, seg_w in calls:
+        _aniso_exact(args, spec, caps, seg_w)
+    (atlas, mip_y, mip_x, sl, uv, dx, dy), spec, caps, seg_w = calls[0]
+    band = (atlas, mip_y, mip_x,
+            [({k: v[536:].contiguous() for k, v in tex.items()},
+              nm[536:].contiguous()) for tex, nm in sl],
+            uv[536:].contiguous(), dx[536:].contiguous(),
+            dy[536:].contiguous())
+    _aniso_exact(band, spec, caps, seg_w)
+
+    img = r.render_eager()[0]
+    with monkeypatch.context() as m:
+        m.setattr(sampling, "sample_slots_aniso_tiered",
+                  sampling.sample_slots_aniso_tiered_plain)
+        plain = r.render_eager()[0]
+    assert torch.equal(img, plain)
+
+
+@pytest.mark.gpu
+def test_aniso_kernel_on_the_ssaa2_frame(cuda_device, monkeypatch):
+    """The ``ssaa=2`` per-pixel frame's opaque sampler call (3840x2160),
+    kernel against plain bit for bit."""
+    sc = _sponza1080()
+    r = FrameRenderer(sc, RenderConfig(width=1920, height=1080,
+                                       shadow_extent=4096, ssaa=2))
+    _orbit_pose(sc, 300)
+    r.render()
+    torch.cuda.synchronize()
+    calls = _sampler_calls(monkeypatch, r.render_eager)
+    assert calls[0][0][4].shape[:2] == (2160, 3840)
+    args, spec, caps, seg_w = calls[0]
+    _aniso_exact(args, spec, caps, seg_w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tss", [False, True], ids=["per_pixel", "tss"])
+def test_replays_count_the_aniso_launches(cuda_device, tss):
+    """A replay of the captured frame adds the launches its eager frame
+    makes: three tiered sampler calls in the per-pixel frame (the opaque
+    layer and two peel layers), none in the texture-space frame."""
+    r = FrameRenderer(_small_sponza(), _graph_cfg(tss))
+    for _ in range(3):
+        r.render()
+        torch.cuda.synchronize()
+    r._react_overflow = False
+    before = cr.launch_counts["aniso_slots"]
+    r.render_eager()
+    eager = cr.launch_counts["aniso_slots"] - before
+    assert eager == (0 if tss else 3)
+    before = cr.launch_counts["aniso_slots"]
+    for _ in range(3):
+        r.render()
+    torch.cuda.synchronize()
+    assert cr.launch_counts["aniso_slots"] - before == 3 * eager
