@@ -49,6 +49,28 @@ def frame_off(frame: np.ndarray, candidates) -> float:
     return min(off_share(frame, c.cpu().numpy()) for c in candidates)
 
 
+def reference_builder(builder: str):
+    """The reference's scene builder of a configuration's
+    ``scene.builder``: the function of that name in
+    ``reference/scene/procedural.py``, else ``build`` of
+    ``reference/scenes/<builder>.py`` (a plain copy of the port's builder
+    of that name; see its README). An unknown name is a
+    ``harness.CellError``."""
+    from . import harness
+    from .reference.scene import procedural
+
+    fn = getattr(procedural, builder, None)
+    if callable(fn):
+        return fn
+    path = harness.HERE / "reference" / "scenes" / f"{builder}.py"
+    if path.is_file():
+        return harness.load_file(
+            path, f"portbench.reference.scenes.{builder}").build
+    raise harness.CellError(
+        f"no scene builder {builder!r} in reference/scene/procedural.py nor "
+        f"a file reference/scenes/{builder}.py")
+
+
 def reference_config(fields: dict):
     """The reference's ``RenderConfig`` from a configuration file's
     fields."""
@@ -138,10 +160,9 @@ def compare(*, sched, seed, builder, scene_kw, cfg_fields, kept, device,
 
     from . import harness
     from .reference.graph.frame import ReferenceRenderer
-    from .reference.scene import procedural
     from .reference.scene.camera import ViewProperties
 
-    scene = getattr(procedural, builder)(seed=seed, **scene_kw)
+    scene = reference_builder(builder)(seed=seed, **scene_kw)
     cam = scene.camera
     eye0 = np.asarray(cam.eye, np.float32).copy()
     look0 = np.asarray(cam.look_at, np.float32).copy()

@@ -77,14 +77,18 @@ def cell_metrics(bench: dict, workload: str, kind: str) -> list[dict]:
             if "workloads" not in m or workload in m["workloads"]]
 
 
-def load_module(directory: str, name: str):
-    """``<directory>/<name>.py`` under the benchmark, by file name."""
-    path = HERE / directory / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"portbench.{directory}.{name.replace('.', '_')}", path)
+def load_file(path: Path, module_name: str):
+    """The module of one ``.py`` file, imported under ``module_name``."""
+    spec = importlib.util.spec_from_file_location(module_name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_module(directory: str, name: str):
+    """``<directory>/<name>.py`` under the benchmark, by file name."""
+    return load_file(HERE / directory / f"{name}.py",
+                     f"portbench.{directory}.{name.replace('.', '_')}")
 
 
 def forbidden_modules() -> list[str]:
@@ -116,15 +120,27 @@ def render_config(torch_cfg_cls, raster_cls, fields: dict):
 
 def scene_fingerprint(scene, eye0) -> str:
     """Digest of a host scene's inputs (vertices, indices, texture
-    images, cubemap, the starting eye ``eye0``), to hold the two
-    generators' scenes equal."""
+    images, cubemap, the light and material tables, the shadow-map count
+    and each light's shadow map, the starting eye ``eye0``), to hold the
+    two generators' scenes equal."""
     h = hashlib.sha1()
-    for a in scene.meshes.build_arrays():
+
+    def put(a):
         h.update(np.ascontiguousarray(a).tobytes())
+
+    for a in scene.meshes.build_arrays():
+        put(a)
     for t in scene.textures._textures:
-        h.update(np.ascontiguousarray(t.image).tobytes())
-    h.update(np.ascontiguousarray(scene.textures.cubemap).tobytes())
-    h.update(np.asarray(eye0, np.float32).tobytes())
+        put(t.image)
+    put(scene.textures.cubemap)
+    for table in (scene.lights.build_arrays(),
+                  scene.materials.build_arrays()):
+        for k in sorted(table):
+            h.update(k.encode())
+            put(table[k])
+    put(np.array([scene.n_shadow_maps]
+                 + [lt.shadow_index for lt in scene.lights.lights], np.int64))
+    put(np.asarray(eye0, np.float32))
     return h.hexdigest()
 
 
@@ -192,7 +208,11 @@ class Cell:
         scene_kw.update(scene_overrides or {})
         self.scene_kw = scene_kw
         self.builder = builder
-        self.scene = getattr(procedural, builder)(seed=seed, **scene_kw)
+        build = getattr(procedural, builder, None)
+        if not callable(build):
+            raise CellError(f"no scene builder {builder!r} in the port's "
+                            f"scene/procedural.py")
+        self.scene = build(seed=seed, **scene_kw)
         cfg_fields = dict(spec["config"]["render_config"])
         cfg_fields.update(config_overrides or {})
         self.cfg_fields = cfg_fields
@@ -377,6 +397,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
             raise CellError(f"the cell needs {cell_spec['chips']} cards, "
                             f"{torch.cuda.device_count()} found")
     device = torch.device(device or "cuda")
+    # the reference's scene builder is found now, not after the window
+    checks.reference_builder(spec["config"]["scene"]["builder"])
     # float32 products stay float32 (the reference's too)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -20,10 +20,15 @@ departures:
   computes otherwise (texture-space half-res light), a frame has one
   candidate image for each choice of path per layer: the port picks the
   path from its budgets, which the reference does not read;
-- no editor grid, shadow-map quad, alpha-mask pass, Phong, band or
-  ``ssaa`` path: a config asking for one is refused;
+- no editor grid, shadow-map quad, alpha-mask pass, Phong or band
+  path: a config asking for one is refused;
+- ``ssaa > 1`` renders every pass at ``config.render_extent()`` and
+  resolves each candidate's linear colour to ``(height, width)`` by the
+  ``ssaa x ssaa`` box mean in float32 before the sRGB encode, as the
+  port's ``frame.encode`` does;
 - ``lowp=True`` holds the G-buffer attributes and the shaded colours in
-  bfloat16: the control of the benchmark's comparison.
+  bfloat16: the control of the benchmark's comparison (resolved after
+  its bfloat16 rounding).
 
 ``ReferenceRenderer`` re-derives from the host scene everything the
 port's renderer derives at set-up: the device scene, the chart layout at
@@ -51,9 +56,14 @@ from .uniforms import unpack_params
 def check_config(config: RenderConfig) -> None:
     """Refuse what this reference does not render."""
     if (config.grid or config.show_shadow_quad or config.alpha_mask
-            or config.ssaa != 1 or config.shading != ShadingModel.PBR):
+            or config.shading != ShadingModel.PBR):
         raise ValueError("the reference renders PBR frames without grid, "
-                         "shadow quad, alpha-mask pass or ssaa")
+                         "shadow quad or alpha-mask pass")
+    # the port folds the rendered rows into whole output rows: a whole
+    # frame's height * ssaa rows always fold, so its one rule is ssaa >= 1
+    if not isinstance(config.ssaa, int) or config.ssaa < 1:
+        raise ValueError(f"ssaa must be a whole number >= 1, not "
+                         f"{config.ssaa!r}")
     if config.texture_space and config.debug_views:
         raise ValueError("texture_space needs debug_views=False")
 
@@ -210,13 +220,23 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
+def resolve_ssaa(rgb: torch.Tensor, f: int) -> torch.Tensor:
+    """[f*H,f*W,3] linear colour -> [H,W,3]: the mean of each ``f x f``
+    block in float32, the port's resolve before its sRGB encode."""
+    if f == 1:
+        return rgb
+    fh, fw = rgb.shape[:2]
+    return rgb.reshape(fh // f, f, fw // f, f, 3).mean(dim=(1, 3))
+
+
 def render_frame(scene, uniform, shadow_maps, config: RenderConfig,
                  n_shadows: int, has_translucent: bool, slots_used,
                  shadow_lights, alpha_is_factor: bool = False,
                  lowp: bool = False):
     """One frame's candidate [H,W,4] uint8 sRGB images: one, or one for
     each choice of the peel layers' shading paths where those differ (see
-    the module)."""
+    the module); each rendered at ``config.render_extent()`` and resolved
+    to ``(height, width)``."""
     check_config(config)
     params = unpack_params(uniform, n_shadows)
     vo = cached_vertex_outputs(scene, params["view"], params["proj"])
@@ -310,7 +330,7 @@ def render_frame(scene, uniform, shadow_maps, config: RenderConfig,
             a = [p[..., 3].clamp(0.0, 1.0) * covered_t for p in paths]
             outs = [o * (1.0 - ai[..., None]) + p[..., :3] * ai[..., None]
                     for o in outs for p, ai in zip(paths, a)]
-    return [encode_srgb8(lp(o)) for o in outs]
+    return [encode_srgb8(resolve_ssaa(lp(o), config.ssaa)) for o in outs]
 
 
 def bake_tss_visibility(scene, shadow_maps, u, n_shadows: int,

@@ -37,6 +37,10 @@ def rasterize_binned(setup, height: int, width: int, peel_bounds=None,
     starts = ends - area
     best = torch.full((height * width,), _EMPTY, dtype=torch.int64,
                       device=dev)
+    if counts is not None:
+        # a pass with no valid triangle (a cube face that sees nothing)
+        # counts no fragment
+        counts.setdefault("fragments", 0)
     # chunk boundaries on the host: triangles [a, b) with at most ``chunk``
     # candidates, or one triangle alone where its box is larger
     ends_h = ends.tolist()
@@ -66,7 +70,7 @@ def rasterize_binned(setup, height: int, width: int, peel_bounds=None,
         cover = inside & wpos & (znum >= 0.0) & (znum <= wnum)
         pix = y * width + x
         if counts is not None:
-            counts["fragments"] = counts.get("fragments", 0) + cover.sum()
+            counts["fragments"] = counts["fragments"] + cover.sum()
         if peel_bounds is not None:
             cover = cover & (depth > peel_bounds[0].reshape(-1)[pix]) \
                 & (depth <= peel_bounds[1].reshape(-1)[pix])

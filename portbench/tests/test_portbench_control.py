@@ -61,10 +61,10 @@ def _control(cell):
     """The control in the program's place: every frame of the window is
     the reference's frame at its pose in bfloat16."""
     from portbench.reference.graph.frame import ReferenceRenderer
-    from portbench.reference.scene import procedural
     from portbench.reference.scene.camera import ViewProperties
 
-    scene = getattr(procedural, cell.builder)(seed=SEED, **cell.scene_kw)
+    scene = checks.reference_builder(cell.builder)(seed=SEED,
+                                                   **cell.scene_kw)
     cam = scene.camera
     eye0 = np.asarray(cam.eye, np.float32).copy()
     look0 = np.asarray(cam.look_at, np.float32).copy()

@@ -6,6 +6,7 @@ import torch
 
 from portbench import checks, harness
 from portbench.kernels import k1, k2
+from portbench.reference.graph import frame as rf
 from portbench.reference.graph.frame import ReferenceRenderer
 from portbench.reference.raster import reference_raster as rr_oracle
 from portbench.reference.raster.binned_raster import rasterize_binned
@@ -48,6 +49,12 @@ def test_binned_raster_is_the_oracle(cull):
     got2 = rasterize_binned(s, 40, 56, peel_bounds=(prev, zmax))
     assert torch.equal(got2.tri_id, want2.tri_id)
     assert torch.equal(got2.depth, want2.depth)
+    # a pass with no valid triangle (a cube face that sees nothing)
+    counts = {}
+    none = rasterize_binned(s._replace(valid=torch.zeros_like(s.valid)),
+                            40, 56, counts=counts)
+    assert counts == {"fragments": 0, "triangles": 0}
+    assert bool((none.tri_id < 0).all())
 
 
 def _ref_frames(fields, vp_fn, dirty_fit: bool, scene_kw=SCENE):
@@ -78,11 +85,13 @@ def _no_drops(st):
     return all(int(v) == 0 for k, v in st.items() if "overflow" in k)
 
 
-@pytest.mark.parametrize("tss", [False, True])
-def test_reference_is_the_ports_reference_backend(tss):
+@pytest.mark.parametrize("tss,ssaa", [(False, 1), (True, 1), (False, 2),
+                                      (True, 2)])
+def test_reference_is_the_ports_reference_backend(tss, ssaa):
     """At the budgets the port chose, a frame that drops nothing is one
-    of the reference's candidates, byte for byte."""
-    fields = dict(width=W, height=H, shadow_extent=96,
+    of the reference's candidates, byte for byte; supersampled, each
+    candidate is resolved to the output size as the port resolves."""
+    fields = dict(width=W, height=H, shadow_extent=96, ssaa=ssaa,
                   **(TSS if tss else {}))
     port = _port(fields)
     port.render()
@@ -91,7 +100,21 @@ def test_reference_is_the_ports_reference_backend(tss):
     assert _no_drops(st)
     refs = _ref_frames(fields, _move, dirty_fit=False)
     assert len(refs) == (4 if tss else 1)
+    assert img.shape == (H, W, 4)
     assert any(torch.equal(img, r) for r in refs)
+
+
+def test_the_resolve_and_what_the_reference_refuses():
+    x = torch.rand((8, 12, 3))
+    assert rf.resolve_ssaa(x, 1) is x
+    got = rf.resolve_ssaa(x, 2)
+    assert got.shape == (4, 6, 3)
+    assert torch.allclose(got[1, 2], x[2:4, 4:6].reshape(4, 3).mean(0))
+    rf.check_config(checks.reference_config(dict(ssaa=3, **TSS)))
+    for bad in (dict(ssaa=0), dict(ssaa=1.5), dict(alpha_mask=True),
+                dict(grid=True)):
+        with pytest.raises(ValueError):
+            rf.check_config(checks.reference_config(bad))
 
 
 def test_a_shadow_dirty_frame_is_the_ports():
