@@ -553,6 +553,13 @@ def _tss_shade_fns(scene, config: RenderConfig, ls_atlas, slots_used,
     return dense, px, dense
 
 
+def resolve_ssaa(rgb: torch.Tensor, f: int) -> torch.Tensor:
+    """[f*h, f*w, 3] linear colour -> [h, w, 3]: the mean of each ``f x
+    f`` block in float32, the box resolve before the sRGB encode."""
+    h, w = rgb.shape[0] // f, rgb.shape[1] // f
+    return rgb.reshape(h, f, w, f, 3).mean(dim=(1, 3))
+
+
 def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
                 n_shadows: int, backend: str, has_translucent: bool,
                 slots_used, shadow_lights=None, has_mask: bool = False,
@@ -890,9 +897,7 @@ def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
 
     with span("frame.encode"):
         if config.ssaa > 1:
-            f = config.ssaa
-            rgb = rgb.reshape(slice_h // f, f, config.width, f,
-                              3).mean(dim=(1, 3))
+            rgb = resolve_ssaa(rgb, config.ssaa)
         img = encode_srgb8(rgb)
     stats = {"pair_overflow": overflow,
              "pair_tail_overflow": tail_overflow,

@@ -39,10 +39,12 @@ SPANS = ("frame.shadow", "frame.tss_bake", "frame.tss_spec", "frame.setup",
          "frame.peel_shade", "frame.overlay", "frame.encode")
 # the regions whose device time a ``Stamps`` buffer keeps: ``frame``, the
 # frame program from its first operation to its last (no range), and the
-# spans the shading, binning and shadow readings add up
+# spans the shading, binning, shadow, raster and resolve readings add up
+# (``frame.encode`` holds the ``ssaa`` box resolve and the sRGB encode)
 STAMPED = ("frame", "frame.tss_spec", "frame.setup", "frame.bin_pack",
            "frame.shade", "frame.mask", "frame.peel_shade", "frame.shadow",
-           "frame.tss_bake")
+           "frame.tss_bake", "frame.merged_raster", "frame.raster",
+           "frame.peel_raster", "frame.encode")
 _SLOT = {n: i for i, n in enumerate(STAMPED)}
 
 _bound = None        # the Stamps of the program being dispatched

@@ -31,14 +31,21 @@ _TSS = _BASE.replace(debug_views=False, texture_space=True,
                      tss_preshaded_blend=True, dither_trilinear=True,
                      sky_halfres=True)
 # the regions each configuration enters on a shadow-dirty frame (the
-# procedural Sponza has translucent banners; no alpha-mask pass runs)
+# procedural Sponza has translucent banners; no alpha-mask pass runs; the
+# texture-space frame rasters its opaque pass and first two peel layers in
+# one merged launch, and its ``frame.peel_raster`` launches nothing)
 _REGIONS = {
-    "per_pixel": {"frame", "frame.setup", "frame.bin_pack", "frame.shade",
-                  "frame.peel_shade", "frame.shadow"},
+    "per_pixel": {"frame", "frame.setup", "frame.bin_pack", "frame.raster",
+                  "frame.shade", "frame.peel_raster", "frame.peel_shade",
+                  "frame.encode", "frame.shadow"},
     "tss": {"frame", "frame.tss_spec", "frame.setup", "frame.bin_pack",
-            "frame.shade", "frame.peel_shade", "frame.shadow",
+            "frame.merged_raster", "frame.shade", "frame.peel_raster",
+            "frame.peel_shade", "frame.encode", "frame.shadow",
             "frame.tss_bake"},
 }
+# the stamped regions of the raster passes and of the resolve and encode
+_NEW_REGIONS = ("frame.merged_raster", "frame.raster", "frame.peel_raster",
+                "frame.encode")
 _CONFIGS = {"per_pixel": _BASE, "tss": _TSS}
 
 
@@ -96,6 +103,27 @@ class _Ranges:
 
     def names(self) -> set:
         return {n for n, _, _ in self.ranges} - {"test.call"}
+
+
+@pytest.mark.parametrize("ssaa", [1, 2])
+def test_the_raster_and_resolve_are_stamped(scene, ssaa):
+    """The raster passes and ``frame.encode`` (with ``ssaa`` 2 the box
+    resolve and the sRGB encode) are stamped regions, one slot each of
+    the frame's counter ``pass_ns``; a texture-space frame enters each
+    but ``frame.raster`` (its merged launch rasters the opaque pass),
+    inside the frame's span."""
+    assert set(_NEW_REGIONS) <= set(profiling.STAMPED)
+    assert len(set(profiling.STAMPED)) == len(profiling.STAMPED)
+    r = FrameRenderer(scene, _TSS.replace(ssaa=ssaa), device="cpu")
+    img, st = r.render()
+    assert img.shape == (96, 128, 4)
+    ns = dict(zip(profiling.STAMPED, st["pass_ns"].tolist()))
+    assert st["pass_ns"].shape == (len(profiling.STAMPED),)
+    assert ns["frame.raster"] == 0
+    assert all(ns[n] > 0 for n in _NEW_REGIONS if n != "frame.raster"), ns
+    own = sum(v for k, v in ns.items()
+              if k not in ("frame", "frame.shadow", "frame.tss_bake"))
+    assert own <= ns["frame"]
 
 
 @pytest.mark.parametrize("name", sorted(_CONFIGS))
@@ -235,7 +263,8 @@ def _read(name):
 
 
 _READERS = ("shading.replay_ms", "binning.replay_ms", "shadow.replay_ms",
-            "shadow.host_fit_ms", "loop.host_syncs_per_frame")
+            "shadow.host_fit_ms", "loop.host_syncs_per_frame",
+            "raster.replay_ms", "encode.replay_ms")
 
 
 @pytest.mark.parametrize("name", _READERS)
@@ -266,6 +295,36 @@ def test_metric_readers_on_records(monkeypatch):
     assert _read("shadow.replay_ms") is None
     assert _read("shadow.host_fit_ms") is None
     assert _read("loop.host_syncs_per_frame") == 0
+
+
+def test_raster_and_encode_readers_on_records(monkeypatch):
+    unpolled = _rec(merged_raster=9.0)
+    unpolled["device_ms"] = None
+    recs = [_rec(merged_raster=0.5, peel_raster=0.01, encode=0.1,
+                 shade=10.0),
+            _rec(dirty=True, raster=0.3, peel_raster=0.2, encode=0.2,
+                 shadow=15.0),
+            unpolled,
+            # eager frames are not the window's
+            _rec(replayed=False, raster=50.0, encode=50.0)]
+    monkeypatch.setattr(profiling, "frame_trace", lambda: recs)
+    assert _read("raster.replay_ms") == pytest.approx((0.51 + 0.5) / 2)
+    assert _read("encode.replay_ms") == pytest.approx(0.15)
+
+
+@pytest.mark.parametrize("name", ["raster.replay_ms", "encode.replay_ms"])
+def test_raster_and_encode_readers_are_silent_on_older_records(
+        monkeypatch, name):
+    """Records of a program that stamped none of the raster and resolve
+    regions (their ``device_ms`` lack the keys) read nothing, and raise
+    nothing."""
+    recs = [_rec(shade=10.0, setup=1.0), _rec(shade=12.0)]
+    for r in recs:
+        for n in _NEW_REGIONS:
+            del r["device_ms"][n]
+    monkeypatch.setattr(profiling, "frame_trace", lambda: recs)
+    assert _read(name) is None
+    assert _read("shading.replay_ms") == pytest.approx(11.0)
 
 
 # --- on the card ------------------------------------------------------------
@@ -300,12 +359,51 @@ def test_replayed_frame_stamps_on_the_card(scene):
     warm, dirty = profiling.frame_trace()
     assert warm["replayed"] and dirty["replayed"] and dirty["dirty"]
     assert (warm["syncs"], dirty["syncs"]) == (0, 1)
+    # ``frame.peel_raster`` holds no launch here (its two stamps alone):
+    # on the card it may read 0 at the clock's resolution
     for rec, regions in ((warm, _REGIONS["tss"] - {"frame.shadow",
                                                    "frame.tss_bake"}),
                          (dirty, _REGIONS["tss"])):
         dev = rec["device_ms"]
-        assert {k for k, v in dev.items() if v > 0} == regions, dev
+        assert {k for k, v in dev.items() if v > 0} - {
+            "frame.peel_raster"} == regions - {"frame.peel_raster"}, dev
         own = sum(v for k, v in dev.items()
                   if k not in ("frame", "frame.shadow", "frame.tss_bake"))
         assert own <= dev["frame"], dev
     assert np.isfinite(dirty["host_ms"]["host.shadow_fit"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(_CONFIGS))
+def test_replayed_supersampled_frame_stamps_the_raster_and_resolve(name):
+    """A replayed ``ssaa=2`` frame (512x256 inside): the raster passes
+    that launch a kernel and ``frame.encode`` (the box resolve and the
+    sRGB encode) read positive device ms, and every stamped region of
+    the frame program together is no more than its frame span."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the stamps are kernels of the graph")
+    sc = procedural.sponza_scene(width=256, height=128, n_textures=8,
+                                 target_tris=20_000)
+    r = FrameRenderer(sc, _CONFIGS[name].replace(width=256, height=128,
+                                                 shadow_extent=512, ssaa=2))
+    for _ in range(4):
+        r.render()
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]):
+        img = r.render()[0]
+        torch.cuda.synchronize()
+    r.render()
+    torch.cuda.synchronize()
+    r._poll_overflow()
+    assert img.shape == (128, 256, 4)
+    rec, = profiling.frame_trace()
+    assert rec["replayed"]
+    dev = rec["device_ms"]
+    launched = ({"frame.merged_raster", "frame.encode"} if name == "tss"
+                else {"frame.raster", "frame.peel_raster", "frame.encode"})
+    assert all(dev[n] > 0 for n in launched), dev
+    assert all(dev[n] >= 0 for n in _NEW_REGIONS), dev
+    own = sum(v for k, v in dev.items()
+              if k not in ("frame", "frame.shadow", "frame.tss_bake"))
+    assert own <= dev["frame"], dev
