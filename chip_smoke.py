@@ -6,8 +6,9 @@ Run from the repository root on a machine with one CUDA card:
 
 It builds every kernel of the port's paths from the sources in the
 checkout (the tile raster K1 and the merged raster K2, both in
-``csrc/raster_tile.cu``, and the tiered anisotropic sampler,
-``csrc/aniso_slots.cu``: one ``nvcc``), holds each kernel against its plain PyTorch version on the card (random
+``csrc/raster_tile.cu``, the tiered anisotropic sampler,
+``csrc/aniso_slots.cu``, and the texture-space peel pass,
+``csrc/tss_peel.cu``: one ``nvcc``), holds each kernel against its plain PyTorch version on the card (random
 triangles in every mode; the dense-tile stress scene of
 ``tools/split_stress.py``, whose tile the kernels split into 8 work items
 and more and merge, with forced ties (phase split-stress); then every
@@ -27,7 +28,9 @@ Sponza (260k triangles, 200 textures of 512^2), checking their output:
   (``texture_space``, ``tss_preshaded_blend``, ``dither_trilinear``,
   ``sky_halfres``; charts at density 0.5 within 2M texels), where one K2
   launch a frame rasters the opaque pass and both translucent layers;
-  the same frame through separate K1 launches (a test hook, uncounted);
+  the same frame through separate K1 launches (a test hook, uncounted;
+  its peels go through ``shade_sparse`` with every tile of every tile row
+  selected, shaded per pixel as the peel kernel shades the merged ones);
   then one frame each of factored texture-space shading (4 translucent
   layers: K2 and a K1 dual peel), fully pre-shaded shading and shading
   without translucency (where K1 at 4 attributes rasters the opaque pass).
@@ -128,7 +131,14 @@ Sponza (260k triangles, 200 textures of 512^2), checking their output:
   frame), and at pose ``ANISO_POSE`` its eager frame's opaque call
   (1920x1080) and first peel layer shaded on its compacted pseudo-image
   (128 wide) are held bit for bit against the plain version and timed,
-  each beside its bytes bound (``aniso_bound``: the taps actually taken).
+  each beside its bytes bound (``aniso_bound``: the taps actually taken);
+- the texture-space peel pass (phase tss-peel, ``csrc/tss_peel.cu``): the
+  headline at 1080p and at ``ssaa=2`` renders ``PEEL_FRAMES`` orbit
+  frames (one peel launch a frame, no observed shade tiles), and at pose
+  ``PEEL_POSE`` its eager frame's peel call (1920x1080, 3840x2160) is held
+  bit for bit against the plain version (eager, a row band, replayed from
+  a CUDA graph) and timed beside its bytes bound (``tss_peel_bound``);
+  the frame with the plain version in its place is the same.
 Each phase is fatal: any failure exits non-zero without the final line.
 Before the last line it prints the card's name and power limit (as
 ``nvidia-smi`` reports them), one JSON line of per-kernel numbers and one
@@ -192,6 +202,10 @@ ORBIT_FRAMES, ORBIT_PP_FRAMES, POSE, WS_POSE = 30, 8, 7, 11
 # sampler calls are taken at pose ANISO_POSE, inside the benchmark's window
 ANISO_SETTLE, ANISO_POSE = 192, 300
 ANISO_SOURCE = "renderengine_tpu_torch/csrc/aniso_slots.cu"
+# phase tss-peel: the headline (1080p and ssaa=2) renders PEEL_FRAMES orbit
+# frames, then its peel call is taken at pose PEEL_POSE
+PEEL_FRAMES, PEEL_POSE = 64, 300
+PEEL_SOURCE = "renderengine_tpu_torch/csrc/tss_peel.cu"
 # history, not measured by this run: the one-block-per-tile kernels'
 # times before the split walk on an NVIDIA H100 80GB HBM3 at 700.00 W
 # (PERF.md, from this script as it was then), and the warm frames
@@ -953,6 +967,163 @@ def aniso_phase(fr, cr, scene, pp_cfg, dev, reset_counts):
         orbit.restore()
     res["wall_s"] = time.time() - t_phase
     log(f"phase aniso: {res}")
+    return rows, res
+
+
+def tss_peel_bound(rgb, layers, factor: bool):
+    """The least time the card could take for one peel-pass launch: (ms,
+    bytes, covered layer pixels). Bytes: the planes read (both layers'
+    tri ids at every pixel; a covered layer pixel's chart uv, and its
+    material id with the factor alpha), the colour read and written once
+    (24 B a pixel), and 20 B a covered layer pixel (its 16-byte rgb9e5
+    block and 4-byte alpha block; 16 + 2 with the f16 factor alpha)."""
+    h, w = rgb.shape[:2]
+    covered = sum(int((layer[0] >= 0).sum()) for layer in layers)
+    per_covered = 8 + (4 + 16 + 2 if factor else 20)
+    bytes_moved = h * w * (8 + 24) + covered * per_covered
+    return bytes_moved / HBM_BYTES_PER_S * 1e3, bytes_moved, covered
+
+
+def tss_peel_phase(fr, cr, scene, tss_cfg, dev, reset_counts):
+    """Phase tss-peel: the texture-space peel pass's kernel at the
+    headline's shapes. The 1080p headline and its ``ssaa=2`` twin
+    (3840x2160 inside) each render ``PEEL_POSE`` of the orbit after
+    ``PEEL_FRAMES`` orbit frames through the controller and the captured
+    frame (one peel launch a frame, replays included, no observed shade
+    tiles, nothing dropped); the eager frame's call is held bit for bit
+    against the plain version, eager, on a row band (rows 536 on) and
+    replayed from a CUDA graph, and timed (CUDA-event median of 3 rounds
+    of 30, in a graph, the profiler's device time, the host time a call)
+    beside its bound (``tss_peel_bound``) and the plain version's time.
+    The frame with the plain version in the kernel's place is the same,
+    byte for byte. Returns the two kernel rows and the phase's record."""
+    import bench_torch
+    from renderengine_tpu_torch.shading import lightchart as lc
+
+    t_phase = time.time()
+    orbit = bench_torch.Orbit(scene.camera)
+    rows, res = [], {}
+    try:
+        for name, cfg in (("tss_peel", tss_cfg),
+                          ("tss_peel_4k", tss_cfg.replace(ssaa=2))):
+            r = fr.FrameRenderer(scene, cfg)
+            reset_counts()
+            p0 = dict(r.program_counts)
+            stats = []
+            for i in range(PEEL_FRAMES):
+                stats.append(r.render(orbit.vp(i))[1])
+            img, _ = r.render(orbit.vp(PEEL_POSE))
+            torch.cuda.synchronize()
+            launches = cr.launch_counts["tss_peel"]
+            caps = counts_delta(p0, r.program_counts)
+            frames = caps["frame_replays"] + caps["frame_captures"]
+            shade_tiles = sum("blend_shade_tiles" in st for st in stats)
+            dropped = sum(any(int(v) for k, v in st.items()
+                              if "overflow" in k) for st in stats[1:])
+            rec = {"launches": launches, "frames": frames, "programs": caps,
+                   "frames_with_shade_tiles": shade_tiles,
+                   "frames_dropping_work": dropped}
+            if launches != frames or shade_tiles:
+                raise AssertionError(f"{name}: {rec}")
+            r._react_overflow = False
+            calls = []
+            real = lc.tss_peel_composite
+
+            def record(rgb, rb, ab, layers, ah, aw, mat_all=None):
+                calls.append((rgb.clone(), rb, ab,
+                              [tuple(t.clone() for t in la) for la in layers],
+                              ah, aw, mat_all))
+                return real(rgb, rb, ab, layers, ah, aw, mat_all)
+
+            with mock.patch.object(lc, "tss_peel_composite", record):
+                eager, _ = r.render_eager()
+            with mock.patch.object(lc, "tss_peel_composite",
+                                   lc.tss_peel_composite_plain):
+                plain_img, _ = r.render_eager()
+            torch.cuda.synchronize()
+            if len(calls) != 1 or not torch.equal(eager, img) or \
+                    not torch.equal(plain_img, img):
+                raise AssertionError(f"{name}: {len(calls)} calls; replay, "
+                                     f"eager and plain frames equal: "
+                                     f"{torch.equal(eager, img)}, "
+                                     f"{torch.equal(plain_img, img)}")
+            rgb, rb, ab, layers, ah, aw, mat = calls[0]
+            band = [tuple(t[536:].contiguous() for t in la) for la in layers]
+            exact, err = True, 0.0
+            for args in ((rgb, layers), (rgb[536:].contiguous(), band)):
+                got = lc.tss_peel_composite(args[0].clone(), rb, ab,
+                                            args[1], ah, aw, mat)
+                want = lc.tss_peel_composite_plain(args[0].clone(), rb, ab,
+                                                   args[1], ah, aw, mat)
+                exact &= torch.equal(got.view(torch.int32),
+                                     want.view(torch.int32))
+                err = max(err, max_abs_err(got, want))
+            buf = rgb.clone()
+
+            def kern(buf=buf, rb=rb, ab=ab, layers=layers, ah=ah, aw=aw,
+                     mat=mat):
+                return lc.tss_peel_composite(buf, rb, ab, layers, ah, aw,
+                                             mat)
+
+            # the launch replayed from a graph over the call's colour
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                kern()
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, stream=side):
+                    kern()
+            torch.cuda.current_stream().wait_stream(side)
+            buf.copy_(rgb)
+            graph.replay()
+            want = lc.tss_peel_composite_plain(rgb.clone(), rb, ab, layers,
+                                               ah, aw, mat)
+            torch.cuda.synchronize()
+            exact &= torch.equal(buf.view(torch.int32),
+                                 want.view(torch.int32))
+            del graph
+            log(f"  tss_peel vs plain [{name}, {tuple(rgb.shape[:2])}, "
+                f"factor alpha {mat is not None}]: eager, band and replayed "
+                f"exact={exact}, max_abs_err={err!r}")
+            if not exact:
+                raise AssertionError(f"tss_peel disagrees ({name})")
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            lc.tss_peel_composite_plain(rgb.clone(), rb, ab, layers, ah, aw,
+                                        mat)
+            t1.record()
+            torch.cuda.synchronize()
+            plain_ms = t0.elapsed_time(t1)
+            rounds = [cuda_ms(kern, 30) for _ in range(3)]
+            bound_ms, bytes_moved, covered = tss_peel_bound(
+                rgb, layers, mat is not None)
+            t = {"ms": statistics.median(rounds), "rounds_ms": rounds,
+                 "in_graph_ms": graph_ms(kern, 30),
+                 "device_ms": device_ms(kern, 10,
+                                        kernels=("tss_peel_kernel",)),
+                 "host_ms": host_ms(kern, 30)}
+            log(f"  times [{name}]: {t}")
+            rows.append({
+                "name": name, "route": "cuda", "source": PEEL_SOURCE,
+                "replaces": None, "launches": launches,
+                "max_abs_err": err, "ms": t["ms"], "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": "bytes",
+                "library_ms": None, "in_graph_ms": t["in_graph_ms"],
+                "densest_tile_ms": None, "launch_over_densest": None,
+                "device_ms": t["device_ms"], "host_ms": t["host_ms"],
+                "pairs": None})
+            rec.update({"shape": list(rgb.shape[:2]), "bytes": bytes_moved,
+                        "covered_layer_pixels": covered,
+                        "factor_alpha": mat is not None,
+                        "rounds_ms": rounds})
+            res[name] = rec
+            del r, calls, rgb, layers, band, buf, want, img, eager, plain_img
+            torch.cuda.empty_cache()
+    finally:
+        orbit.restore()
+    res["wall_s"] = time.time() - t_phase
+    log(f"phase tss-peel: {res}")
     return rows, res
 
 
@@ -1878,7 +2049,9 @@ def main() -> None:
             with mock.patch.object(cr, "raster_tiles",
                                    cr._raster_tiles_plain), \
                     mock.patch.object(cr, "merged_tiles",
-                                      cr._merged_tiles_plain):
+                                      cr._merged_tiles_plain), \
+                    mock.patch.object(lightchart, "tss_peel_composite",
+                                      lightchart.tss_peel_composite_plain):
                 return r.render_eager()[0]
 
         reset_counts()
@@ -1950,10 +2123,20 @@ def main() -> None:
             raise AssertionError("the TSS frame is far from the per-pixel "
                                  "frame")
         # the same frame with K2 replaced by K1's opaque + dual launches,
-        # dispatched op by op: identical, byte for byte
+        # dispatched op by op: identical, byte for byte. Unmerged peels
+        # are shaded through shade_sparse: at one tile short of the dense
+        # path every tile of every tile row is shaded per pixel, as the
+        # peel kernel shades the merged ones
         fr._FORCE_UNMERGED = True
         try:
-            unm, _ = tss_r.render_eager()
+            every = tss_r._shade_tile_total() - 1
+            unm, _ = fr.render_frame(
+                tsd, tss_r._u, tss_r._shadow_maps, tss_r.config.replace(
+                    blend_layer_tile_budgets=(every, every)),
+                tss_r.n_shadows, "cuda", True, tss_r._slots_used,
+                shadow_lights=tss_r._shadow_lights,
+                has_mask=tss_r._has_mask,
+                alpha_is_factor=tss_r._alpha_is_factor)
         finally:
             fr._FORCE_UNMERGED = False
         same = torch.equal(unm, timg)
@@ -2075,6 +2258,16 @@ def main() -> None:
     try:
         aniso_rows, aniso_res = aniso_phase(fr, cr, scene, pp_cfg, dev,
                                             reset_counts)
+    except Exception as e:  # noqa: BLE001
+        fail(phase, e)
+
+    # phase: the texture-space peel pass's kernel at the headline's 1080p
+    # and 3840x2160 (ssaa=2) calls, bit-exact against its plain version
+    # and timed
+    phase = "tss-peel"
+    try:
+        peel_rows, peel_res = tss_peel_phase(fr, cr, scene, tss_cfg, dev,
+                                             reset_counts)
     except Exception as e:  # noqa: BLE001
         fail(phase, e)
 
@@ -2922,7 +3115,7 @@ def main() -> None:
     ] + [row(name, b["launches"], b["err"], times[name]["ms"],
              b["plain_ms"], b["bound"][0], b["bound"][1],
              k2=name.startswith("merged"), pairs=b["pairs"])
-         for name, b in ssaa2_rows.items()] + aniso_rows
+         for name, b in ssaa2_rows.items()] + aniso_rows + peel_rows
     for k in kernels:
         log(f"{k['name']}: {k['ms']!r} ms in this run, in a graph "
             f"{k['in_graph_ms']!r} ms, device "
@@ -2985,7 +3178,7 @@ def main() -> None:
                         "launches_app_path": app_shadow_launches},
         "graph": graph_res, "app": app, "sharded": sharded_res,
         "orbit": orbit_res, "ssaa2": ssaa2_res, "workspace": ws_res,
-        "aniso": aniso_res,
+        "aniso": aniso_res, "tss_peel": peel_res,
         "ssaa2_kernels": {k: {"ops": b["bound"][2], "bytes": b["bound"][3]}
                           for k, b in ssaa2_rows.items()},
         "width": SPONZA_W, "height": SPONZA_H, "card": card,

@@ -54,7 +54,7 @@ from ..raster.setup import (VertexOutputs, clip_coords, corner_clip,
 from ..scene.camera import ViewProperties
 from ..shading import fitting
 from ..shading import grid as grid_mod
-from ..shading import lightchart, pbr, phong, sampling, skybox
+from ..shading import lightchart, pbr, phong, skybox
 from ..shading import shadow as shadow_mod
 from ..shading.srgb import encode_srgb8
 from ..shading.textured_quad import draw_textured_quad
@@ -403,8 +403,9 @@ def render_frame(scene, uniform, shadow_maps, config: RenderConfig,
     triangles), ``pair_tail_overflow`` the span>dense_k pairs past the
     big-list cap, ``blend_pair_overflow`` everything the translucent pass
     dropped (pairs, sparse-grid tiles, unshaded tiles), and, when they
-    apply, ``blend_shade_tiles`` [layers], ``penumbra_tiles`` and
-    ``penumbra_overflow``."""
+    apply, ``blend_shade_tiles`` [layers] (not for the pre-shaded TSS
+    peels of the merged launch on a CUDA device, which one kernel shades
+    whole), ``penumbra_tiles`` and ``penumbra_overflow``."""
     check_config(config)
     params = unpack_params(uniform, n_shadows)
     vo = cached_vertex_outputs(scene, params["view"], params["proj"])
@@ -488,8 +489,12 @@ def _tss_shade_fns(scene, config: RenderConfig, ls_atlas, slots_used,
                    alpha_is_factor: bool, y0: int = 0):
     """The texture-space screen passes of one frame, from this frame's
     specular chart pass ``ls_atlas`` [3,Ah,Aw]: (opaque dense pass, peel
-    pass per pixel, peel pass dense). Each takes (chart_uv [...,2], uv
-    [...,2] or None, mat_id, need_alpha, covered) and returns rgba.
+    pass per pixel, peel pass dense, pre-shaded peel composite). The first
+    three take (chart_uv [...,2], uv [...,2] or None, mat_id, need_alpha,
+    covered) and return rgba; the last (None unless the peels are
+    pre-shaded) takes (rgb [H,W,3], [(tri_id, chart_uv, mat_id)] of the
+    two peel layers, nearest first) and composites them into rgb in place
+    (``lightchart.tss_peel_composite``: every covered pixel, no budget).
 
     Factored TSS samples the merged light table (static diffuse planes +
     this frame's specular planes) beside one albedo tap; pre-shaded charts
@@ -511,9 +516,7 @@ def _tss_shade_fns(scene, config: RenderConfig, ls_atlas, slots_used,
         def factor_alpha(out, mat_id, need_alpha):
             if not (need_alpha and alpha_is_factor):
                 return out
-            fa = sampling.table_lookup_planar(scene["mat_all"], mat_id,
-                                              (3,))[0]
-            return torch.cat([out[..., :3], fa[..., None]], -1)
+            return lightchart.factor_alpha(out, scene["mat_all"], mat_id)
 
         def pre_px(chart_uv, uv, mat_id, need_alpha=True, covered=None):
             out = lightchart.tss_shade_pre(
@@ -528,6 +531,12 @@ def _tss_shade_fns(scene, config: RenderConfig, ls_atlas, slots_used,
                 rgb_blocks, a_blocks, chart_uv, c_ah, c_aw, y0=y0,
                 need_alpha=need_alpha and not alpha_is_factor)
             return factor_alpha(out, mat_id, need_alpha)
+
+        def peels(rgb, layers):
+            layers = [tuple(t.contiguous() for t in lay) for lay in layers]
+            return lightchart.tss_peel_composite(
+                rgb.contiguous(), rgb_blocks, a_blocks, layers, c_ah, c_aw,
+                mat_all=scene["mat_all"] if alpha_is_factor else None)
 
     if config.tss_preshaded:
         dense = pre_dense
@@ -549,8 +558,8 @@ def _tss_shade_fns(scene, config: RenderConfig, ls_atlas, slots_used,
             return px(chart_uv, uv, mat_id, covered=covered)
 
     if pre_any:
-        return dense, pre_px, pre_dense
-    return dense, px, dense
+        return dense, pre_px, pre_dense, peels
+    return dense, px, dense, None
 
 
 def resolve_ssaa(rgb: torch.Tensor, f: int) -> torch.Tensor:
@@ -621,6 +630,7 @@ def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
     # torch.profiler while a session runs, and inside a renderer's
     # programs the device clock stamps of the passes of STAMPED
     tss = config.texture_space
+    tss_peels = None
     if tss:
         # the per-frame SPECULAR chart pass (dense over chart texels, zero
         # gathers); the diffuse table is static (baked on upload /
@@ -630,8 +640,9 @@ def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
                 ls_atlas = lightchart.chart_light_spec(
                     scene, scene["chart_pos"], scene["chart_normal"],
                     scene["chart_mat"], scene["chart_vis"], view_args)
-            tss_dense, tss_blend_px, tss_blend_dense = _tss_shade_fns(
-                scene, config, ls_atlas, slots_used, alpha_is_factor, y0)
+            tss_dense, tss_blend_px, tss_blend_dense, tss_peels = \
+                _tss_shade_fns(scene, config, ls_atlas, slots_used,
+                               alpha_is_factor, y0)
     # merged launch (K2): on the TSS cuda path the opaque base pass and the
     # first TWO translucent peel layers share one tile walk
     merged_ok = (cuda and tss and blend_pass
@@ -831,50 +842,63 @@ def _frame_core(scene, params, vo, shadow_maps, config: RenderConfig,
                 li += len(new)
                 g_last = new[-1][0]
                 prev = torch.where(g_last.tri_id >= 0, g_last.depth, 2.0)
-        layers = []
+        # the pre-shaded TSS peels of the merged launch on the card: one
+        # kernel shades every covered pixel of both layers and composites
+        # them (no shade-tile budget, so none observed and none dropped)
+        kernel_peels = (merged_layers is not None and tss_peels is not None
+                        and config.translucency_layers == 2
+                        and dev.type == "cuda")
         with span("frame.peel_shade"):
-            for li, (gt, attrs_t) in enumerate(raster_layers):
-                budget = (layer_budgets[li] if li < len(layer_budgets)
-                          else shared_budget)
-                budget = max(1, min(int(budget), n_tiles))
-                covered_t = gt.tri_id >= 0
-                sp_in = {"covered": covered_t, "tri_id": gt.tri_id}
-                if attrs_t is not None:
-                    sp_in["attrs"] = attrs_t
-                    sp_in["mat_id"] = gt.mat_id
-                elif gt.bary is not None:
-                    sp_in["bary"] = gt.bary
-                else:  # reference backend: recompute bary densely
-                    bary_t, _ = rref.barycentrics_at(setup_t.coef, gt.tri_id,
-                                                     slice_h, w, y0, fh)
-                    sp_in["bary"] = bary_t[..., :2]
-                if budget >= n_tiles:
-                    # full-coverage layer (e.g. a screen-filling banner):
-                    # the sparse tilefy/top-k/gather/scatter is pure
-                    # overhead
-                    rgba_t = resolve_and_shade(sp_in, dense=True)
-                else:
-                    rgba_t = shade_sparse(resolve_and_shade, sp_in, slice_h,
-                                          w, th, tw, max_tiles=budget,
-                                          full_height=fh)
-                # observed need per layer in BUDGET-equivalent units
-                # (budget >= need <=> the per-row k covers the busiest tile
-                # row, mirroring shade_sparse's conversion); beyond-k tiles
-                # went unshaded => fold into the overflow counter
-                ct = torch.nn.functional.pad(
-                    covered_t, (0, ntx_b * tw - w, 0, nty_b * th - slice_h))
-                ct = ct.reshape(nty_b, th, ntx_b, tw)
-                row_need = ct.any(3).any(1).sum(-1)              # [nty]
-                shade_tile_counts.append(row_need.max() * nty_full)
-                if budget < n_tiles:
-                    k_row = max(1, min(-(-budget // nty_full), ntx_b))
-                    blend_overflow = blend_overflow + (
-                        row_need - k_row).clamp_min(0).sum()
-                layers.append((covered_t, rgba_t))
-            for covered_t, rgba_t in reversed(layers):
-                a = rgba_t[..., 3].clamp(0.0, 1.0) * covered_t
-                rgb = rgb * (1.0 - a[..., None]) \
-                    + rgba_t[..., :3] * a[..., None]
+            if kernel_peels:
+                rgb = tss_peels(rgb, [(gt.tri_id, attrs_t, gt.mat_id)
+                                      for gt, attrs_t in raster_layers])
+            else:
+                layers = []
+                for li, (gt, attrs_t) in enumerate(raster_layers):
+                    budget = (layer_budgets[li] if li < len(layer_budgets)
+                              else shared_budget)
+                    budget = max(1, min(int(budget), n_tiles))
+                    covered_t = gt.tri_id >= 0
+                    sp_in = {"covered": covered_t, "tri_id": gt.tri_id}
+                    if attrs_t is not None:
+                        sp_in["attrs"] = attrs_t
+                        sp_in["mat_id"] = gt.mat_id
+                    elif gt.bary is not None:
+                        sp_in["bary"] = gt.bary
+                    else:  # reference backend: recompute bary densely
+                        bary_t, _ = rref.barycentrics_at(
+                            setup_t.coef, gt.tri_id, slice_h, w, y0, fh)
+                        sp_in["bary"] = bary_t[..., :2]
+                    if budget >= n_tiles:
+                        # full-coverage layer (e.g. a screen-filling
+                        # banner): the sparse tilefy/top-k/gather/scatter
+                        # is pure overhead
+                        rgba_t = resolve_and_shade(sp_in, dense=True)
+                    else:
+                        rgba_t = shade_sparse(resolve_and_shade, sp_in,
+                                              slice_h, w, th, tw,
+                                              max_tiles=budget,
+                                              full_height=fh)
+                    # observed need per layer in BUDGET-equivalent units
+                    # (budget >= need <=> the per-row k covers the busiest
+                    # tile row, mirroring shade_sparse's conversion);
+                    # beyond-k tiles went unshaded => fold into the
+                    # overflow counter
+                    ct = torch.nn.functional.pad(
+                        covered_t,
+                        (0, ntx_b * tw - w, 0, nty_b * th - slice_h))
+                    ct = ct.reshape(nty_b, th, ntx_b, tw)
+                    row_need = ct.any(3).any(1).sum(-1)              # [nty]
+                    shade_tile_counts.append(row_need.max() * nty_full)
+                    if budget < n_tiles:
+                        k_row = max(1, min(-(-budget // nty_full), ntx_b))
+                        blend_overflow = blend_overflow + (
+                            row_need - k_row).clamp_min(0).sum()
+                    layers.append((covered_t, rgba_t))
+                for covered_t, rgba_t in reversed(layers):
+                    a = rgba_t[..., 3].clamp(0.0, 1.0) * covered_t
+                    rgb = rgb * (1.0 - a[..., None]) \
+                        + rgba_t[..., :3] * a[..., None]
 
     # editor ground grid (drawable form of the reference's never-drawn
     # Grid, SURVEY 2.3; blended + depth-tested against the opaque z-buffer)

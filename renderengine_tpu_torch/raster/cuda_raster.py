@@ -32,8 +32,10 @@ On a CPU tensor ``raster_tiles`` runs ``_raster_tiles_plain`` (and
 its kernel or raises — there is no fallback.
 
 The kernels' library also holds the tiered anisotropic sampler
-(``csrc/aniso_slots.cu``, wrapped by ``shading.sampling.aniso_slots``),
-counted here beside K1 and K2.
+(``csrc/aniso_slots.cu``, wrapped by ``shading.sampling.aniso_slots``)
+and the texture-space peel pass (``csrc/tss_peel.cu``, wrapped by
+``shading.lightchart.tss_peel_composite``), counted here beside K1 and
+K2.
 """
 
 from __future__ import annotations
@@ -64,8 +66,10 @@ MAT_LIMIT = 1 << 24       # ids must stay exact as integer-valued f32
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "raster_tile.cu"          # K1 and K2
-# every source of the one library: K1, K2 and the tiered aniso sampler
-SOURCES = (SOURCE, _PKG / "csrc" / "aniso_slots.cu")
+# every source of the one library: K1, K2, the tiered aniso sampler and
+# the texture-space peel pass
+SOURCES = (SOURCE, _PKG / "csrc" / "aniso_slots.cu",
+           _PKG / "csrc" / "tss_peel.cu")
 BUILD_DIR = _PKG / "build"
 K1_ATTRS = (0, 4, 8)      # the attribute counts K1 is built for
 K2_ATTRS = 4              # attributes a K2 pair row carries
@@ -74,11 +78,14 @@ K2_ATTRS_B = (2, 4)       # attribute prefixes K2's blend layers interpolate
 # launches of the kernels (plain-version runs do not count): the totals,
 # and the same launches by variant: (n_attrs, peel, dual) for K1,
 # ("merged", n_attrs_b) for K2; ``aniso_slots`` counts the tiered aniso
-# sampler (``shading.sampling.aniso_slots``). A call during a CUDA graph
+# sampler (``shading.sampling.aniso_slots``), ``tss_peel`` the
+# texture-space peel pass (``shading.lightchart.tss_peel_composite``). A
+# call during a CUDA graph
 # capture launches nothing: ``graph.program.CapturedProgram`` moves the
 # counts of its capture into its own record and adds them back at each
 # replay, which launches the kernels
-launch_counts = {"raster_tile": 0, "merged_tile": 0, "aniso_slots": 0}
+launch_counts = {"raster_tile": 0, "merged_tile": 0, "aniso_slots": 0,
+                 "tss_peel": 0}
 # other device work of the wrappers, counted apart: the zeroing of a new
 # or grown workspace (a memset, once per device and size)
 helper_counts = {"workspace_zero": 0}
@@ -215,6 +222,10 @@ def _library():
             + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
             + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
             + [ctypes.c_void_p] * 2)
+        lib.tss_peel_launch.restype = ctypes.c_int
+        lib.tss_peel_launch.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 6
+            + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         lib.item_pairs = lib.raster_item_pairs()
         _lib = lib
     return _lib

@@ -900,6 +900,110 @@ def tss_shade_pre(rgb_blocks, a_blocks, chart_uv, ah: int, aw: int,
     return torch.cat([rgb, a[..., None]], -1)
 
 
+def factor_alpha(rgba: torch.Tensor, mat_all: torch.Tensor,
+                 mat_id: torch.Tensor) -> torch.Tensor:
+    """``rgba`` [...,4] with its alpha replaced by the material's
+    base-colour factor alpha (``mat_all`` column 3): the pre-shaded peels'
+    alpha where the bake found the texture alpha to be that factor."""
+    from . import sampling
+
+    fa = sampling.table_lookup_planar(mat_all, mat_id, (3,))[0]
+    return torch.cat([rgba[..., :3], fa[..., None]], -1)
+
+
+def tss_peel_composite_plain(rgb, rgb_blocks, a_blocks, layers, ah: int,
+                             aw: int, mat_all=None) -> torch.Tensor:
+    """The pre-shaded peel pass of a texture-space frame in plain PyTorch:
+    every pixel of each layer shaded by ``tss_shade_pre`` (alpha from
+    ``a_blocks``, or with ``mat_all`` the material factor alpha), then the
+    layers composited into ``rgb`` [H,W,3] back to front, as
+    ``graph/frame.py`` composites its peels. ``layers``: [(tri_id [H,W]
+    int32, chart_uv [H,W,2] f32, mat_id [H,W] int32)], nearest first.
+    Writes ``rgb`` in place and returns it."""
+    out = rgb
+    for tri_id, chart_uv, mat_id in reversed(layers):
+        c = tss_shade_pre(rgb_blocks, a_blocks, chart_uv, ah, aw,
+                          need_alpha=mat_all is None)
+        if mat_all is not None:
+            c = factor_alpha(c, mat_all, mat_id)
+        a = c[..., 3].clamp(0.0, 1.0) * (tri_id >= 0)
+        out = out * (1.0 - a[..., None]) + c[..., :3] * a[..., None]
+    return rgb.copy_(out)
+
+
+def _check_peel_args(rgb, rgb_blocks, a_blocks, layers, ah: int, aw: int,
+                     mat_all) -> None:
+    """Dtypes, shapes, contiguity and device of ``tss_peel_composite``'s
+    arguments."""
+    def need(ok, msg):
+        if not ok:
+            raise ValueError(msg)
+
+    need(rgb.dtype == torch.float32 and rgb.dim() == 3
+         and rgb.shape[2] == 3, "rgb must be [H, W, 3] float32")
+    h, w = rgb.shape[:2]
+    need(ah >= 2 and aw >= 2, "the chart atlas must be at least 2x2")
+    need(rgb_blocks.dtype == torch.int32
+         and tuple(rgb_blocks.shape) == (ah * aw, 4),
+         "rgb_blocks must be [ah * aw, 4] int32")
+    tabs = [rgb, rgb_blocks]
+    if mat_all is None:
+        need(a_blocks is not None and a_blocks.dtype == torch.int32
+             and tuple(a_blocks.shape) == (ah * aw,),
+             "a_blocks must be [ah * aw] int32")
+        tabs.append(a_blocks)
+    else:
+        need(mat_all.dtype == torch.float16 and mat_all.dim() == 2
+             and mat_all.shape[1] > 3,
+             "mat_all must be [n, > 3] float16")
+        tabs.append(mat_all)
+    need(len(layers) == 2, "the peel pass takes two layers")
+    for tri_id, chart_uv, mat_id in layers:
+        need(tri_id.dtype == torch.int32 and mat_id.dtype == torch.int32
+             and tuple(tri_id.shape) == (h, w)
+             and tuple(mat_id.shape) == (h, w),
+             "tri_id and mat_id must be [H, W] int32")
+        need(chart_uv.dtype == torch.float32
+             and tuple(chart_uv.shape) == (h, w, 2),
+             "chart_uv must be [H, W, 2] float32")
+        tabs += [tri_id, chart_uv, mat_id]
+    need(all(t.is_contiguous() for t in tabs),
+         "the peel pass's tensors must be contiguous")
+    need(all(t.device == rgb.device for t in tabs),
+         "the peel pass's tensors must share rgb's device")
+    need(rgb_blocks.data_ptr() % 16 == 0,
+         "rgb_blocks must start on 16 bytes")
+
+
+def tss_peel_composite(rgb, rgb_blocks, a_blocks, layers, ah: int, aw: int,
+                       mat_all=None) -> torch.Tensor:
+    """The pre-shaded peel pass's kernel (``csrc/tss_peel.cu``): the
+    arguments of ``tss_peel_composite_plain``, checked on every device.
+    CPU tensors take the plain version. On a CUDA device ONE launch on the
+    current stream shades every covered pixel of both layers and
+    composites them into ``rgb`` in place (no tile budget: nothing is
+    dropped); it never synchronises and returns ``rgb``."""
+    _check_peel_args(rgb, rgb_blocks, a_blocks, layers, ah, aw, mat_all)
+    if rgb.device.type == "cpu":
+        return tss_peel_composite_plain(rgb, rgb_blocks, a_blocks, layers,
+                                        ah, aw, mat_all)
+    from ..raster import cuda_raster
+    planes = [t.data_ptr() for layer in layers for t in layer]
+    lib = cuda_raster._library()
+    with torch.cuda.device(rgb.device):
+        rc = lib.tss_peel_launch(
+            rgb.data_ptr(), rgb_blocks.data_ptr(),
+            None if mat_all is not None else a_blocks.data_ptr(),
+            None if mat_all is None else mat_all.data_ptr(),
+            0 if mat_all is None else mat_all.shape[1], *planes,
+            rgb.shape[0], rgb.shape[1], aw, aw - 1.001, ah - 1.001,
+            torch.cuda.current_stream(rgb.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"tss_peel launch failed: CUDA error {rc}")
+    cuda_raster.launch_counts["tss_peel"] += 1
+    return rgb
+
+
 # --- the upload-time bake and the static light tables ---------------------
 # Plain functions. The upload bake runs eagerly once per upload (the JAX
 # package jits it); the renderers capture the visibility bake and the

@@ -1,7 +1,8 @@
 """Tests of the port that need a CUDA card: K1 and K2 (both in
-``csrc/raster_tile.cu``) and the tiered anisotropic sampler
-(``csrc/aniso_slots.cu``) against their plain PyTorch versions, and
-golden and texture-space frames rendered through the kernels. They skip
+``csrc/raster_tile.cu``), the tiered anisotropic sampler
+(``csrc/aniso_slots.cu``) and the texture-space peel pass
+(``csrc/tss_peel.cu``) against their plain PyTorch versions, and golden
+and texture-space frames rendered through the kernels. They skip
 without a card. This file imports no JAX, so it
 also runs where only PyTorch is installed:
 
@@ -17,7 +18,10 @@ walk into work items and merge them exactly; the stress-scene cases hold
 that, ties included). The sampler kernel equals its plain version bit for
 bit too (every multiply, add, divide and square root rounded on its own,
 the same integer arithmetic), and the per-pixel frame through it equals
-the frame through the plain sampler byte for byte."""
+the frame through the plain sampler byte for byte. So does the peel
+pass's kernel (its ``/ 255`` is PyTorch's CUDA multiply by the
+reciprocal), and the texture-space frame through it the frame through
+its plain version."""
 
 import os
 
@@ -34,6 +38,7 @@ from renderengine_tpu_torch.graph.render_loop import RenderLoop
 from renderengine_tpu_torch.scene import procedural
 from renderengine_tpu_torch.raster import cuda_raster as cr
 from renderengine_tpu_torch.raster.setup import restrict_rows, triangle_setup
+from renderengine_tpu_torch.shading import lightchart as lc
 from renderengine_tpu_torch.shading import sampling
 from renderengine_tpu_torch.tools import goldens
 from renderengine_tpu_torch.tools import split_stress as ss
@@ -1116,3 +1121,269 @@ def test_replays_count_the_aniso_launches(cuda_device, tss):
         r.render()
     torch.cuda.synchronize()
     assert cr.launch_counts["aniso_slots"] - before == 3 * eager
+
+
+# --- the texture-space peel pass (csrc/tss_peel.cu) -------------------------
+
+def _peel_inputs(dev, h, w, ah=1536, aw=1024, seed=0):
+    """Random inputs of the peel pass on ``dev``: any int32 is an rgb9e5
+    word and an alpha block, chart uvs run past the atlas on both sides,
+    about 3/5 of each layer's pixels are covered, and the factor alphas
+    of ``mat_all`` run past [0, 1]. (rgb, rgb_blocks, a_blocks, layers,
+    ah, aw, mat_all)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def words(*shape):
+        return torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=g,
+                             device=dev, dtype=torch.int64).to(torch.int32)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    layers = [(torch.where(rand(h, w) < 0.6, 7, -1).to(torch.int32),
+               rand(h, w, 2) * torch.tensor([aw + 8.0, ah + 8.0],
+                                            device=dev) - 4.0,
+               torch.randint(0, 40, (h, w), generator=g, device=dev,
+                             dtype=torch.int32))
+              for _ in range(2)]
+    mat = (rand(40, 24) * 1.4 - 0.2).to(torch.float16)
+    return (rand(h, w, 3) * 8.0, words(ah * aw, 4), words(ah * aw), layers,
+            ah, aw, mat)
+
+
+def _peel_exact(rgb, rb, ab, layers, ah, aw, mat=None):
+    """The kernel against the plain version on copies of ``rgb``, bit for
+    bit (the int32 views: NaNs and signed zeros too); returns the
+    kernel's."""
+    got = _peel_kernel(rgb.clone(), rb, ab, layers, ah, aw, mat)
+    want = lc.tss_peel_composite_plain(rgb.clone(), rb, ab, layers, ah, aw,
+                                       mat)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+        float((got - want).abs().max())
+    return got
+
+
+def _peel_kernel(*a):
+    """One wrapper call on the card: one launch counted."""
+    before = cr.launch_counts["tss_peel"]
+    out = lc.tss_peel_composite(*a)
+    assert cr.launch_counts["tss_peel"] == before + 1
+    return out
+
+
+# (H, W, alpha source): the 1080p frame, the ``ssaa=2`` 3840x2160 plane,
+# an odd small plane
+PEEL_CASES = {"frame_blocks": (1080, 1920, "blocks"),
+              "frame_factor": (1080, 1920, "factor"),
+              "ssaa2_blocks": (2160, 3840, "blocks"),
+              "ssaa2_factor": (2160, 3840, "factor"),
+              "odd_blocks": (37, 53, "blocks")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(PEEL_CASES))
+def test_tss_peel_kernel_matches_plain(cuda_device, case):
+    """Eager launches: the whole plane and a row band of it (rows 536 on,
+    contiguous copies), which equals the plane's rows."""
+    h, w, alpha = PEEL_CASES[case]
+    rgb, rb, ab, layers, ah, aw, mat = _peel_inputs(cuda_device, h, w)
+    mat = mat if alpha == "factor" else None
+    got = _peel_exact(rgb, rb, ab, layers, ah, aw, mat)
+    y0 = min(536, h // 2)
+    band = [tuple(t[y0:].contiguous() for t in layer) for layer in layers]
+    got_b = _peel_exact(rgb[y0:].contiguous(), rb, ab, band, ah, aw, mat)
+    assert torch.equal(got_b, got[y0:])
+    # covered pixels moved, pixels no layer covers kept their colour
+    none = (layers[0][0] < 0) & (layers[1][0] < 0)
+    assert torch.equal(got[none], rgb[none])
+    assert not torch.equal(got[~none], rgb[~none])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("alpha", ["blocks", "factor"])
+def test_tss_peel_kernel_replayed_in_a_graph(cuda_device, alpha):
+    """The launch captured in a CUDA graph and replayed over new colour
+    planes copied into its input: each replay equals the plain version."""
+    rgb, rb, ab, layers, ah, aw, mat = _peel_inputs(cuda_device, 1080, 1920)
+    mat = mat if alpha == "factor" else None
+    buf = rgb.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        lc.tss_peel_composite(buf, rb, ab, layers, ah, aw, mat)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            lc.tss_peel_composite(buf, rb, ab, layers, ah, aw, mat)
+    torch.cuda.current_stream().wait_stream(side)
+    for seed in (1, 2):
+        src = _peel_inputs(cuda_device, 1080, 1920, seed=seed)[0]
+        buf.copy_(src)
+        graph.replay()
+        want = lc.tss_peel_composite_plain(src.clone(), rb, ab, layers, ah,
+                                           aw, mat)
+        torch.cuda.synchronize()
+        assert torch.equal(buf.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_tss_peel_kernel_makes_no_host_sync(cuda_device):
+    rgb, rb, ab, layers, ah, aw, mat = _peel_inputs(cuda_device, 64, 96)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lc.tss_peel_composite(rgb, rb, ab, layers, ah, aw)
+        lc.tss_peel_composite(rgb, rb, ab, layers, ah, aw, mat)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_tss_peel_kernel_refuses_bad_inputs(cuda_device):
+    rgb, rb, ab, layers, ah, aw, mat = _peel_inputs(cuda_device, 16, 32,
+                                                    ah=8, aw=8)
+    with pytest.raises(ValueError, match="device"):
+        lc.tss_peel_composite(rgb, rb, ab.cpu(), layers, ah, aw)
+    with pytest.raises(ValueError, match="device"):
+        lc.tss_peel_composite(rgb, rb, ab, [layers[0], tuple(
+            t.cpu() for t in layers[1])], ah, aw)
+    shifted = torch.zeros(ah * aw * 4 + 1, dtype=torch.int32,
+                          device=cuda_device)[1:].view(ah * aw, 4)
+    with pytest.raises(ValueError, match="16 bytes"):
+        lc.tss_peel_composite(rgb, shifted, ab, layers, ah, aw)
+    with pytest.raises(ValueError, match="float16"):
+        lc.tss_peel_composite(rgb, rb, ab, layers, ah, aw, mat.float())
+
+
+def _tss_sponza_renderer(ssaa=1):
+    """The benchmark's texture-space headline (``sponza1080_tss``) at orbit
+    pose 300, its controller frozen after two frames."""
+    sc = _sponza1080()
+    r = FrameRenderer(sc, RenderConfig(
+        width=1920, height=1080, shadow_extent=4096, debug_views=False,
+        texture_space=True, tss_preshaded_blend=True, dither_trilinear=True,
+        sky_halfres=True, ssaa=ssaa))
+    _orbit_pose(sc, 300)
+    for _ in range(2):
+        r.render()
+        torch.cuda.synchronize()
+    r._react_overflow = False
+    return r
+
+
+def _peel_calls(monkeypatch, render):
+    """The peel pass's arguments in each call of ``render()`` (the colour
+    plane copied as it entered)."""
+    calls = []
+    real = lc.tss_peel_composite
+
+    def record(rgb, rgb_blocks, a_blocks, layers, ah, aw, mat_all=None):
+        calls.append((rgb.clone(), rgb_blocks, a_blocks,
+                      [tuple(t.clone() for t in layer) for layer in layers],
+                      ah, aw, mat_all))
+        return real(rgb, rgb_blocks, a_blocks, layers, ah, aw, mat_all)
+
+    with monkeypatch.context() as m:
+        m.setattr(lc, "tss_peel_composite", record)
+        render()
+    return calls
+
+
+@pytest.mark.gpu
+def test_tss_peel_on_the_sponza_frame(cuda_device, monkeypatch):
+    """The 1080p Sponza texture-space headline at pose 300 of the
+    benchmark's orbit: one peel launch a frame, eager and in every replay
+    of the captured frame; its call, and a row band of it, kernel against
+    plain bit for bit; the whole eager frame equals the eager frame with
+    the plain version monkeypatched in; the frame reports no observed
+    shade tiles and drops nothing."""
+    r = _tss_sponza_renderer()
+    before = cr.launch_counts["tss_peel"]
+    for _ in range(3):
+        img, st = r.render()
+    torch.cuda.synchronize()
+    assert cr.launch_counts["tss_peel"] == before + 3
+    assert "blend_shade_tiles" not in st
+    assert _overflow_free(st)
+    calls = _peel_calls(monkeypatch, r.render_eager)
+    assert len(calls) == 1
+    rgb, rb, ab, layers, ah, aw, mat = calls[0]
+    assert rgb.shape[:2] == (1080, 1920)
+    assert all(int((layer[0] >= 0).sum()) > 0 for layer in layers)
+    _peel_exact(rgb, rb, ab, layers, ah, aw, mat)
+    band = [tuple(t[536:].contiguous() for t in layer) for layer in layers]
+    _peel_exact(rgb[536:].contiguous(), rb, ab, band, ah, aw, mat)
+    eager = r.render_eager()[0]
+    assert torch.equal(eager, img)
+    with monkeypatch.context() as m:
+        m.setattr(lc, "tss_peel_composite", lc.tss_peel_composite_plain)
+        plain = r.render_eager()[0]
+    assert torch.equal(eager, plain)
+
+
+@pytest.mark.gpu
+def test_tss_peel_on_the_ssaa2_frame(cuda_device, monkeypatch):
+    """The ``ssaa=2`` headline's peel call (3840x2160), kernel against
+    plain bit for bit."""
+    r = _tss_sponza_renderer(ssaa=2)
+    calls = _peel_calls(monkeypatch, r.render_eager)
+    assert len(calls) == 1 and calls[0][0].shape[:2] == (2160, 3840)
+    _peel_exact(*calls[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tss", [False, True], ids=["per_pixel", "tss"])
+def test_replays_count_the_tss_peel_launches(cuda_device, tss):
+    """A replay of the captured frame adds the launches its eager frame
+    makes: one peel launch in the texture-space frame, none in the
+    per-pixel frame."""
+    r = FrameRenderer(_small_sponza(), _graph_cfg(tss))
+    for _ in range(3):
+        r.render()
+        torch.cuda.synchronize()
+    r._react_overflow = False
+    before = cr.launch_counts["tss_peel"]
+    r.render_eager()
+    eager = cr.launch_counts["tss_peel"] - before
+    assert eager == (1 if tss else 0)
+    before = cr.launch_counts["tss_peel"]
+    for _ in range(3):
+        r.render()
+    torch.cuda.synchronize()
+    assert cr.launch_counts["tss_peel"] - before == 3 * eager
+
+
+@pytest.mark.gpu
+def test_tss_orbit_drops_no_peel_work(cuda_device):
+    """A small texture-space scene over two cycles of the benchmark's orbit
+    (314 poses each) with the controller on: after the first cycle, no
+    frame of the second reports observed peel shade tiles or any dropped
+    work, and the frame program is never captured again."""
+    sc = _small_sponza()
+    r = FrameRenderer(sc, _graph_cfg(True))
+    e0 = np.asarray(sc.camera.eye, np.float32)
+    target = np.asarray(sc.camera.look_at, np.float32)
+
+    def pose(i):
+        a = 0.02 * i
+        sc.camera.set_camera_view(
+            np.array([e0[0] * np.cos(a) - e0[2] * np.sin(a), e0[1],
+                      e0[0] * np.sin(a) + e0[2] * np.cos(a)], np.float32),
+            target, np.array([0, 1, 0], np.float32))
+
+    for i in range(314):
+        pose(i)
+        r.render()
+    torch.cuda.synchronize()
+    r._poll_overflow()
+    caps = r.program_counts["frame_captures"]
+    stats = []
+    for i in range(314, 628):
+        pose(i)
+        stats.append(r.render()[1])
+    torch.cuda.synchronize()
+    assert not any("blend_shade_tiles" in st for st in stats)
+    assert all(_overflow_free(st) for st in stats)
+    assert r.program_counts["frame_captures"] == caps
+    assert r.config.blend_layer_tile_budgets == ()
