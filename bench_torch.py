@@ -438,9 +438,6 @@ def main(argv=None) -> int:
     t_start = time.time()
     deadline = t_start + args.budget
 
-    # the renderers estimate their budgets: never adopt a record an
-    # earlier process left in the tuned-config cache
-    os.environ["RENDERENGINE_TUNED_CACHE"] = "0"
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
 

@@ -51,8 +51,7 @@ Sponza (260k triangles, 200 textures of 512^2), checking their output:
   counted per frame; on warm frames the poll runs under
   ``torch.cuda.set_sync_debug_mode("error")``. It also logs
   the budgets and the peel-shade span's kernel time before and after the
-  re-tunes, the synchronizing calls of a warm ``render()``, init with
-  and without the tuned-config record (in a directory of its own), the
+  re-tunes, the synchronizing calls of a warm ``render()``, the
   app's 2048^2 shadow launch against its plain version, and the wall ms
   a frame of ``RenderLoop`` against ``render()`` + ``.cpu()``;
 - the compiled frame (phase graph-path): on a CUDA device
@@ -173,7 +172,6 @@ history (``BEFORE_SPLIT_MS``).
 from __future__ import annotations
 
 import json
-import os
 import statistics
 import subprocess
 import sys
@@ -1132,10 +1130,6 @@ def main() -> None:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs a CUDA card", file=sys.stderr)
         sys.exit(2)
-    # the renderers here estimate their budgets: a record an earlier run
-    # left would skip the estimators (the app-path phase turns it on in a
-    # directory of its own for its one check of the record)
-    os.environ["RENDERENGINE_TUNED_CACHE"] = "0"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     root = Path(__file__).resolve().parent
@@ -2587,7 +2581,7 @@ def main() -> None:
     # engine.init(), then main_sample.main() in process on the Sponza at
     # 1920x1080 with the app's defaults (2048^2 shadow maps), per-pixel and
     # --textureSpace; an orbit with the HUD; the poll under the sync guard;
-    # the re-tunes, the tuned record and the loop against sequential frames
+    # the re-tunes and the loop against sequential frames
     del scene
     torch.cuda.empty_cache()
     phase = "app-path"
@@ -2805,48 +2799,8 @@ def main() -> None:
         if warm_sync["render"]["calls"] or warm_sync["render_eager"]["calls"]:
             raise AssertionError("a warm render() synchronizes")
 
-        # the tuned record: a second renderer of the same scene and config
-        # adopts the first one's budgets without running an estimator
-        scene_app = app_r.scene_host
-        rec_dir = tempfile.mkdtemp(prefix="chip_smoke_tuned_")
-        with mock.patch.dict("os.environ", {
-                "RENDERENGINE_TUNED_CACHE": "1",
-                "RENDERENGINE_TORCH_CACHE_DIR": rec_dir}):
-            base_cfg = RenderConfig(width=SPONZA_W, height=SPONZA_H,
-                                    shadow_extent=app_cfg.shadow_extent)
-            torch.cuda.synchronize()
-            t0 = time.time()
-            r_est = fr.FrameRenderer(scene_app, base_cfg)
-            torch.cuda.synchronize()
-            init_est = time.time() - t0
-
-            def refuse(self, *a):
-                raise AssertionError("an estimator ran")
-
-            with mock.patch.object(fr.FrameRenderer,
-                                   "_estimate_pair_budget", refuse), \
-                    mock.patch.object(fr.FrameRenderer,
-                                      "_estimate_blend_budgets", refuse), \
-                    mock.patch.object(fr.FrameRenderer,
-                                      "_estimate_shadow_budget", refuse):
-                t0 = time.time()
-                r_rec = fr.FrameRenderer(scene_app, base_cfg)
-                torch.cuda.synchronize()
-                init_rec = time.time() - t0
-            adopted = (r_rec.config == r_est.config
-                       and r_rec._shadow_budget_val == r_est._shadow_budget_val)
-        app["tuned_record"] = {"init_s_estimated": init_est,
-                               "init_s_from_record": init_rec,
-                               "adopted": adopted}
-        log(f"phase app-path: tuned record: init {init_est:.2f} s with the "
-            f"estimators, {init_rec:.2f} s from the record; adopted "
-            f"{adopted}")
-        if not adopted:
-            raise AssertionError("the tuned record was not adopted")
-        del r_est, r_rec
-
         app["loop_timing"] = {"per_pixel": loop_vs_sequential(app_r)}
-        del app_r, pp_calls, scene_app
+        del app_r, pp_calls
         torch.cuda.empty_cache()
 
         # the texture-space app frame: one K2 launch a frame

@@ -9,14 +9,12 @@ once per source into the package's ``build/`` directory and loads it);
 ``init()`` builds or loads it up front, so the first frame does not pay
 for ``nvcc``. PyTorch runs eagerly, so there is no compiled-program cache
 to point anywhere (the JAX package's XLA compile cache has no
-counterpart). The cache directory holds the tuned-config record
-(``graph/frame.py``).
+counterpart), and the port keeps no other state between processes: each
+renderer sizes its budgets with its estimators (the JAX package's
+tuned-config record has no counterpart).
 """
 
 from __future__ import annotations
-
-import os
-from pathlib import Path
 
 import torch
 
@@ -25,26 +23,15 @@ from ..device import resolve_device
 _initialized: set = set()
 
 
-def cache_dir() -> str:
-    """The port's persistent engine cache directory (the tuned-config
-    record — the reference's ``Intermediate/Projects`` analog,
-    ``compile-shaders.py:154-162``): ``RENDERENGINE_TORCH_CACHE_DIR``, by
-    default ``.torch_cache/`` at the repository root."""
-    return os.environ.get(
-        "RENDERENGINE_TORCH_CACHE_DIR",
-        str(Path(__file__).resolve().parents[2] / ".torch_cache"))
-
-
 def init(device=None) -> torch.device:
     """Idempotent engine init for ``device`` (``cuda`` unless the caller
     passes one; raises without a card, as ``device.resolve_device``
-    does): creates the cache directory and, on a CUDA device, the CUDA
-    context, and builds or loads the raster kernels' library. Returns the
-    device. Call before creating renderers (the apps do)."""
+    does): on a CUDA device, creates the CUDA context and builds or loads
+    the raster kernels' library. Returns the device. Call before creating
+    renderers (the apps do)."""
     dev = resolve_device(device)
     if str(dev) in _initialized:
         return dev
-    Path(cache_dir()).mkdir(parents=True, exist_ok=True)
     if dev.type == "cuda":
         from ..raster import cuda_raster
 

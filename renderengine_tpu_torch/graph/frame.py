@@ -23,8 +23,7 @@ then sample the chart tables. On the ``cuda`` backend the opaque pass and
 the first two translucent layers share one K2 launch.
 
 The reactive runtime (``FrameRenderer``): budgets sized at init from the
-initial camera (or adopted from the tuned-config record of an earlier
-process), every frame's overflow counters copied to pinned host memory
+initial camera, every frame's overflow counters copied to pinned host memory
 without a host wait and consumed by a non-blocking poll, which grows what
 overflowed and tightens the per-layer shade and penumbra budgets to the
 observed coverage. The overlays (editor grid, shadow-map preview quad)
@@ -34,15 +33,11 @@ composite after the translucent pass.
 from __future__ import annotations
 
 import dataclasses
-import hashlib
-import json
 import logging
-import os
 
 import numpy as np
 import torch
 
-from ..core import engine
 from ..core.config import CullMode, RasterConfig, RenderConfig, ShadingModel
 from ..device import resolve_device
 from ..raster import binning
@@ -71,63 +66,6 @@ _log = logging.getLogger(__name__)
 # test hook: force separate opaque/peel launches even where the merged
 # opaque+dual-peel kernel (K2) applies (parity tests compare both paths)
 _FORCE_UNMERGED = False
-
-
-# --- tuned-config persistence ----------------------------------------------
-# The reference persists its compiled-shader state across runs
-# (Intermediate/Projects/shader_cache.json, compile-shaders.py:154-213); the
-# analog here is THIS record: the budget controller's settled values, so a
-# later process skips the init-time estimators and starts from the budgets
-# the re-tunes settled on. ``RENDERENGINE_TUNED_CACHE=0`` turns it off.
-
-_TUNED_CFG_FIELDS = ("translucency_tile_fraction", "penumbra_tile_budget",
-                     "blend_pair_budget", "blend_tile_budget",
-                     "blend_layer_tile_budgets")
-_TUNED_RASTER_FIELDS = ("pairs_per_tri", "pair_budget", "dense_k")
-
-
-def _tuned_path() -> str:
-    return os.path.join(engine.cache_dir(), "tuned_configs.json")
-
-
-def _tuned_enabled() -> bool:
-    return os.environ.get("RENDERENGINE_TUNED_CACHE", "1") != "0"
-
-
-def _load_tuned(key: str) -> dict | None:
-    if not _tuned_enabled():
-        return None
-    try:
-        with open(_tuned_path()) as f:
-            rec = json.load(f).get(key)
-        if rec:
-            rec = dict(rec)
-            if "blend_layer_tile_budgets" in rec:
-                rec["blend_layer_tile_budgets"] = tuple(
-                    rec["blend_layer_tile_budgets"])
-        return rec
-    except (OSError, ValueError):
-        return None
-
-
-def _save_tuned(key: str, rec: dict) -> None:
-    if not _tuned_enabled():
-        return
-    path = _tuned_path()
-    try:
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        try:
-            with open(path) as f:
-                all_rec = json.load(f)
-        except (OSError, ValueError):
-            all_rec = {}
-        all_rec[key] = rec
-        tmp = f"{path}.{os.getpid()}.tmp"
-        with open(tmp, "w") as f:
-            json.dump(all_rec, f, indent=1)
-        os.replace(tmp, path)
-    except OSError:
-        pass  # cache dir unwritable: the record is only a shortcut
 
 
 def check_config(config: RenderConfig) -> None:
@@ -1009,11 +947,23 @@ class FrameRenderer:
     # 8 row slices at _MAX_PAIRS
     _MAX_SHADOW_PAIRS = 16_000_000
 
+    # whether the budgets react to the frames (with ``auto_tune_pairs`` on
+    # the ``cuda`` backend): the estimators at init, ``_poll_overflow``
+    # after. The mesh renderer (``parallel.sharded``) has no controller
+    _has_controller = True
+
     def __init__(self, scene_host, config: RenderConfig, device=None,
                  backend: str | None = None):
+        self._setup(scene_host, config, device, backend or "cuda")
+        self._start()
+
+    def _setup(self, scene_host, config: RenderConfig, device,
+               backend: str) -> None:
+        """Upload the scene and size the budgets: the renderer's state up
+        to the uniform and the programs (``_start``)."""
         check_config(config)
-        # the captured programs (CUDA devices only; made at the end of
-        # __init__, once the budgets are known)
+        # the captured programs (made by ``_start``, once the budgets are
+        # known)
         self._graphs = False
         self.device = resolve_device(device)
         self._programs = Programs(self.device,
@@ -1025,25 +975,13 @@ class FrameRenderer:
         self._stamps = profiling.Stamps(self.device)
         self.frame_records = profiling.new_frame_trace()
         self.host_syncs = 0
-        backend = backend or "cuda"
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
         self.backend = backend
         self.scene_host = scene_host
         self.config = config
         self.n_shadows = scene_host.n_shadow_maps if config.shadows else 0
-        if config.texture_space:
-            # subdivide huge-footprint triangles at upload so every chart
-            # fits MAX_R texels at the requested density, then lay the
-            # charts out from the INITIAL camera footprint (host, once)
-            vp0 = ViewProperties.from_camera(scene_host.camera)
-            viewproj0 = np.asarray(vp0.proj) @ np.asarray(vp0.view)
-            dev_np = scene_host.upload(chart_subdiv=dict(
-                viewproj=viewproj0, width=config.width,
-                height=config.height, density=config.chart_density))
-            lightchart.attach_chart_layout(dev_np, viewproj0, config)
-        else:
-            dev_np = scene_host.upload()
+        dev_np = self._upload()
         self.scene_dev = scene_to_device(dev_np, self.device)
         self._slots_used = tuple(bool((dev_np[k] >= 0).any()) for k in
                                  ("mat_tex_base", "mat_tex_emissive",
@@ -1051,29 +989,17 @@ class FrameRenderer:
         self._has_translucent = int(dev_np["n_blend"]) > 0
         self._has_mask = int(dev_np.get("n_mask", 0)) > 0
         self._shadow_lights = _static_shadow_lights(dev_np)
-        # the budgets below are sized at init from the initial camera, or
-        # adopted from the tuned-config record (the settled budgets of an
-        # earlier process: the controller's grows ratchet, so the record
-        # converges); every one has an overflow counter in the stats
-        tune = backend == "cuda" and config.raster.auto_tune_pairs
+        # the budgets below are sized at init from the initial camera; every
+        # one has an overflow counter in the stats
+        tune = (self._has_controller and backend == "cuda"
+                and config.raster.auto_tune_pairs)
         self._react_overflow = tune
-        self._tuned_key = self._make_tuned_key(dev_np) if tune else None
-        tuned = _load_tuned(self._tuned_key) if tune else None
-        self._tuned_shadow_budget = None
-        if tuned:
-            rc_kw = {k: tuned[k] for k in _TUNED_RASTER_FIELDS if k in tuned}
-            cfg_kw = {k: tuned[k] for k in _TUNED_CFG_FIELDS if k in tuned}
-            if rc_kw:
-                cfg_kw["raster"] = dataclasses.replace(config.raster, **rc_kw)
-            self.config = config = config.replace(**cfg_kw)
-            self._tuned_shadow_budget = tuned.get("shadow_budget")
-        elif tune:
+        if tune:
             ppt, abs_budget, dense_k = self._estimate_pair_budget()
             self.config = config = config.replace(raster=dataclasses.replace(
                 config.raster, pairs_per_tri=ppt, pair_budget=abs_budget,
                 dense_k=dense_k))
-        if (tune and not tuned and self._has_translucent
-                and config.translucency):
+        if tune and self._has_translucent and config.translucency:
             frac, blend_budget, tile_budget = self._estimate_blend_budgets()
             self.config = config = config.replace(
                 translucency_tile_fraction=min(
@@ -1106,9 +1032,7 @@ class FrameRenderer:
                     256, self._shade_tile_total() * 35 // 100))
         # the shadow pass keeps its own pair budget: its tile spans differ
         # wildly from the camera view's (an ortho fit of the whole scene)
-        if self._tuned_shadow_budget:
-            self._shadow_budget_val = int(self._tuned_shadow_budget)
-        elif tune and self.n_shadows > 0:
+        if tune and self.n_shadows > 0:
             self._shadow_budget_val = self._estimate_shadow_budget()
         else:
             self._shadow_budget_val = _pair_budget(
@@ -1130,17 +1054,43 @@ class FrameRenderer:
                     self._baked_exposure, lightchart.host_alpha_is_factor(
                         dev_np, getattr(scene_host, "textures", None)))
             self.scene_dev.update(up)
-        if tune and not tuned:
-            self._save_tuned_now()   # estimator results; re-tunes update it
+
+    def _upload(self, **kw) -> dict:
+        """The host scene's upload dict (numpy arrays; ``kw``:
+        ``upload``'s). With texture-space shading, huge-footprint triangles
+        are subdivided at upload so every chart fits MAX_R texels at the
+        requested density, and the charts are laid out from the INITIAL
+        camera footprint (host, once)."""
+        config, scene_host = self.config, self.scene_host
+        if not config.texture_space:
+            return scene_host.upload(**kw)
+        vp0 = ViewProperties.from_camera(scene_host.camera)
+        viewproj0 = np.asarray(vp0.proj) @ np.asarray(vp0.view)
+        dev_np = scene_host.upload(chart_subdiv=dict(
+            viewproj=viewproj0, width=config.width, height=config.height,
+            density=config.chart_density), **kw)
+        lightchart.attach_chart_layout(dev_np, viewproj0, config)
+        return dev_np
+
+    def _captures(self) -> bool:
+        """Whether the programs are captured (a CUDA device) or
+        dispatched op by op."""
+        return self.device.type == "cuda"
+
+    def _start(self) -> None:
+        """The uniform of the initial camera and, where the programs are
+        captured, every program."""
+        config = self.config
         # the frame's one host->device input: the packed uniform, uploaded
         # into this tensor each frame (the programs read it in place)
         u0 = self.uniform_for_camera()
         self._u = torch.zeros(u0.shape, dtype=torch.float32,
                               device=self.device)
         uniforms.upload(self._u, u0)
-        if self.device.type == "cuda":
+        if self._captures():
             # the counterpart of the JAX package's _start_prewarm: every
-            # program is captured here, so the first render() replays
+            # program is captured here, so the first render() replays (on
+            # every rank in the same order, for the mesh renderer)
             if self.n_shadows > 0:
                 maps, _ = self._shadow_program().outputs
                 # the pack the frame program reads; each shadow replay
@@ -1162,8 +1112,8 @@ class FrameRenderer:
     @config.setter
     def config(self, cfg: RenderConfig) -> None:
         # a new config recaptures the frame program, as the JAX package
-        # re-jits its frame function (the controller's re-tunes, the tuned
-        # record, a caller's assignment)
+        # re-jits its frame function (the controller's re-tunes, a caller's
+        # assignment)
         self._config = cfg
         if self._graphs:
             self._programs.get("frame", cfg, self._frame_fn())
@@ -1225,37 +1175,6 @@ class FrameRenderer:
         devices) or ``eager``."""
         return {"mode": "captured" if self._graphs else "eager",
                 **self._programs.stats()}
-
-    def _make_tuned_key(self, dev_np: dict) -> str:
-        """Content key of the tuned-config record: scene geometry + the
-        BASE config (tuned fields at their defaults) + backend + shadow
-        map count."""
-        h = hashlib.md5()
-        for k in ("positions", "tri_vidx", "n_tris", "n_blend"):
-            if k in dev_np:
-                h.update(np.ascontiguousarray(np.asarray(dev_np[k])).tobytes())
-        base = self.config.replace(
-            **{k: getattr(RenderConfig(), k) for k in _TUNED_CFG_FIELDS})
-        base = base.replace(raster=dataclasses.replace(
-            base.raster, **{k: getattr(RasterConfig(), k)
-                            for k in _TUNED_RASTER_FIELDS}))
-        h.update(repr(base).encode())
-        h.update(self.backend.encode())
-        h.update(str(self.n_shadows).encode())
-        return h.hexdigest()
-
-    def _save_tuned_now(self) -> None:
-        """Write the CURRENT budgets to the tuned-config record (after the
-        init estimates and after every controller re-tune)."""
-        if not self._tuned_key:
-            return
-        cfg = self.config
-        rec = {k: getattr(cfg, k) for k in _TUNED_CFG_FIELDS}
-        rec["blend_layer_tile_budgets"] = list(rec["blend_layer_tile_budgets"])
-        for k in _TUNED_RASTER_FIELDS:
-            rec[k] = getattr(cfg.raster, k)
-        rec["shadow_budget"] = int(self._shadow_budget_val)
-        _save_tuned(self._tuned_key, rec)
 
     def _shade_tile_total(self) -> int:
         h, w = self.config.render_extent()
@@ -1591,7 +1510,6 @@ class FrameRenderer:
                     self._polls_since_pen_retune = 0
             if cfg is not self.config:
                 self.config = cfg
-                self._save_tuned_now()
                 grew = True
         if not grew:
             self._maybe_retune_blend_layers()
@@ -1663,7 +1581,6 @@ class FrameRenderer:
             _log.info("blend shade budgets <- observed coverage: %s -> %s "
                       "(of %d tiles)", cur or "(shared)", new, n_tiles)
             self.config = self.config.replace(blend_layer_tile_budgets=new)
-            self._save_tuned_now()
         self._polls_since_blend_retune = 0
 
     def _observe_penumbra(self, count: int) -> None:
@@ -1707,7 +1624,6 @@ class FrameRenderer:
         _log.info("penumbra tile budget <- observed: %d -> %d (of %d tiles)",
                   cur, new, total)
         self.config = self.config.replace(penumbra_tile_budget=new)
-        self._save_tuned_now()
         self._pen_tuned = True
         self._polls_since_pen_retune = 0
 
@@ -1742,10 +1658,13 @@ class FrameRenderer:
                 rec["syncs"] += self.host_syncs - syncs
         return out
 
-    def _render(self, view_props, rec):
+    def _render(self, view_props, rec, params=None):
+        # ``params``: host params to render in place of the camera's (the
+        # (fn, scene_dev, params_builder) form of ``parallel.sharded``)
         if self._react_overflow:
             self._poll_overflow()
-        u = self.uniform_for_camera(view_props)
+        u = (self.uniform_for_camera(view_props) if params is None
+             else uniforms.pack_params(params, self.n_shadows))
         with span("host.upload"):
             uniforms.upload(self._u, u)
         bake = False

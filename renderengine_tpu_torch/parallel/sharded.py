@@ -65,16 +65,11 @@ import torch.distributed as dist
 from ..core.config import RenderConfig
 from ..device import resolve_device
 from ..graph import frame as fgraph
-from ..graph import uniforms
-from ..graph.program import Programs
 from ..graph.uniforms import unpack_params
 from ..raster import cuda_raster
 from ..raster.setup import VertexOutputs
-from ..scene.camera import ViewProperties
-from ..shading import fitting, lightchart
-from ..shading import grid as grid_mod
+from ..shading import lightchart
 from ..shading import shadow as shadow_mod
-from ..shading import skybox
 
 VERTEX_KEYS = ("positions", "normals", "uvs", "vert_node", "world_pos",
                "world_normal")
@@ -338,211 +333,66 @@ def render_frame_sharded(scene, params, shadow_maps, config: RenderConfig,
     return _all_gather(img, mesh), _reduce_stats(stats, mesh)
 
 
-class ShardedRenderer:
-    """The multi-card ``FrameRenderer``: uploads the scene once on every
-    rank, owns the shadow dirty flag (``RenderScene.cpp:170-181``) and,
-    with texture-space shading, bakes the per-texel visibility and the
-    static light tables on it. Like the JAX package's, it has no budget
-    controller: the budgets are the config's (``pair_budget`` or the
-    per-triangle rule), and the shadow pass's is ``shadow_budget`` or the
-    single-card default. Overflow is counted in each frame's stats and in
-    ``shadow_overflow``.
+class ShardedRenderer(fgraph.FrameRenderer):
+    """``FrameRenderer`` over a mesh: every rank uploads the whole scene
+    (padded for the mesh), renders its band of each frame and its share of
+    the shadow pass (``render_frame_sharded``,
+    ``render_shadow_pass_sharded``), and runs the renderer's own host side:
+    the shadow dirty flag (``RenderScene.cpp:170-181``), the texture-space
+    bakes, the host spans and frame records. Like the JAX package's, it has
+    no budget controller: the budgets are the config's (``pair_budget`` or
+    the per-triangle rule), and the shadow pass's is ``shadow_budget`` or
+    the single-card default. Overflow is counted in each frame's stats and
+    in ``shadow_overflow``. The frame is not stamped.
 
-    Over NCCL it captures its programs at init (the module docstring) and
-    nothing recaptures after: the config never changes. The inputs the
-    graphs read keep their storage: the uniform ``_u`` (uploaded each
-    frame without a host wait), the shadow pack and the TSS tables
-    (written with ``copy_``; ``_local``'s atlas rows are views of them)."""
+    Over NCCL it captures its programs at init (the module docstring);
+    over gloo it dispatches them op by op. ``_local``'s atlas rows are
+    views of the tables the bakes write in place."""
+
+    _has_controller = False
 
     def __init__(self, scene_host, config: RenderConfig, mesh: Mesh,
                  backend: str = "cuda", shadow_budget: int | None = None):
-        fgraph.check_config(config)
-        if backend not in fgraph.BACKENDS:
-            raise ValueError(f"unknown backend {backend!r}; one of "
-                             f"{fgraph.BACKENDS}")
-        self.scene_host = scene_host
-        self.config = config
         self.mesh = mesh
-        self.backend = backend
-        d = mesh.world
-        if config.texture_space:
-            # the single-card chart pipeline: subdivision at upload, host
-            # layout from the initial camera, device bakes
-            vp0 = ViewProperties.from_camera(scene_host.camera)
-            viewproj0 = np.asarray(vp0.proj) @ np.asarray(vp0.view)
-            dev_np = scene_host.upload(
-                pad_tris_to=max(256, d),
-                chart_subdiv=dict(viewproj=viewproj0, width=config.width,
-                                  height=config.height,
-                                  density=config.chart_density))
-            lightchart.attach_chart_layout(dev_np, viewproj0, config)
-        else:
-            dev_np = scene_host.upload(pad_tris_to=max(256, d))
-        dev_np = pad_scene_for_mesh(dev_np, d)
-        self.scene_dev = fgraph.scene_to_device(dev_np, mesh.device)
-        self.n_shadows = scene_host.n_shadow_maps if config.shadows else 0
-        self._slots_used = tuple(bool((np.asarray(dev_np[k]) >= 0).any())
-                                 for k in ("mat_tex_base", "mat_tex_emissive",
-                                           "mat_tex_orm", "mat_tex_normal"))
-        self._has_translucent = int(dev_np["n_blend"]) > 0
-        self._has_mask = int(dev_np.get("n_mask", 0)) > 0
-        self._shadow_lights = fgraph._static_shadow_lights(dev_np)
-        self._alpha_is_factor = False
-        if config.texture_space:
-            self._baked_exposure = float(scene_host.camera.exposure)
-            up, self._alpha_is_factor = lightchart.setup_scene_tss(
-                self.scene_dev, config, self._slots_used,
-                self._baked_exposure, lightchart.host_alpha_is_factor(
-                    dev_np, getattr(scene_host, "textures", None)))
-            self.scene_dev.update(up)
+        self._setup(scene_host, config, mesh.device, backend)
         self._local = shard_scene(self.scene_dev, mesh)
-        self._shadow_budget = int(shadow_budget or fgraph._pair_budget(
-            int(dev_np["tri_vidx"].shape[0]), config.raster.pairs_per_tri))
-        self._shadow_maps = None
-        self._shadows_dirty = True
-        self._shadow_vp_cache = None
-        self.shadow_overflow = 0    # dropped pairs of the last shadow pass
-        # the frame's one host->device input, as FrameRenderer's
-        u0 = uniforms.pack_params(self.params_for_camera(), self.n_shadows)
-        self._u = torch.zeros(u0.shape, dtype=torch.float32,
-                              device=mesh.device)
-        uniforms.upload(self._u, u0)
-        self._programs = Programs(mesh.device,
-                                  ("frame", "shadow", "vis", "tables"))
-        self._graphs = False
-        if mesh.transport == "nccl":
-            # every rank captures the same programs in the same order; each
-            # warm-up runs the collectives eagerly first, which also makes
-            # NCCL's communicator before any capture
-            if self.n_shadows > 0:
-                maps, _ = self._shadow_program().outputs
-                self._shadow_maps = shadow_mod.ShadowPack(
-                    *(torch.zeros_like(t) for t in maps))
-            if config.texture_space:
-                # bakes from the zero pack; the first render() bakes again
-                for name, key, fn in self.tss_bakes(self.n_shadows > 0):
-                    self._programs.get(name, key, fn)
-            self._graphs = True
-            self._programs.get("frame", config, self._frame_fn())
+        if shadow_budget:
+            self._shadow_budget_val = int(shadow_budget)
+        self._start()
+
+    def _upload(self, **kw) -> dict:
+        d = self.mesh.world
+        return pad_scene_for_mesh(super()._upload(pad_tris_to=max(256, d)),
+                                  d)
+
+    def _captures(self) -> bool:
+        # the collectives run on the card only over NCCL
+        return self.mesh.transport == "nccl"
 
     @property
     def shadow_maps(self):
         """The cached packed shadow maps (``shadow.ShadowPack``) or None."""
         return self._shadow_maps
 
-    def mark_shadows_dirty(self) -> None:
-        self._shadows_dirty = True
-        self._shadow_vp_cache = None
-
-    def params_for_camera(self, view_props: ViewProperties | None = None):
-        """Host params of the frame, as ``FrameRenderer.params_for_camera``
-        (the shadow fit is cached per dirty cycle)."""
-        vp = view_props or ViewProperties.from_camera(self.scene_host.camera)
-        params = vp.as_arrays()
-        params["inv_vp_rot"] = skybox.skybox_ray_matrix(vp.view, vp.proj)
-        params["inv_vp"] = grid_mod.grid_unproject_matrix(vp.view, vp.proj)
-        if self.n_shadows > 0:
-            if self._shadows_dirty or self._shadow_vp_cache is None:
-                self._shadow_vp_cache = \
-                    fitting.shadow_transforms_for_scene(self.scene_host)
-            params["shadow_viewproj"] = self._shadow_vp_cache
-        return params
-
-    def tss_bakes(self, visibility: bool) -> list:
-        """The texture-space bakes over this renderer's state
-        (``graph.frame.tss_bakes``; ``chart_vis`` is written in place, so
-        ``_local``'s atlas rows follow)."""
-        return fgraph.tss_bakes(self.scene_dev, self._u, self._shadow_maps,
-                                self.n_shadows, self._shadow_lights,
-                                self.config, visibility)
-
     def _frame_fn(self):
         """``render_frame_sharded`` with the renderer's state bound: the
-        function the frame program captures."""
+        function the frame program captures. Every rank must call it."""
+        cfg = self.config
         return lambda: render_frame_sharded(
             self.scene_dev, unpack_params(self._u, self.n_shadows),
-            self._shadow_maps, self.config, self.n_shadows, self.mesh,
-            self.backend, self._has_translucent, self._slots_used,
+            self._shadow_maps, cfg, self.n_shadows, self.mesh, self.backend,
+            self._has_translucent, self._slots_used,
             shadow_lights=self._shadow_lights, has_mask=self._has_mask,
             alpha_is_factor=self._alpha_is_factor, local=self._local)
 
-    def _shadow_program(self):
-        """The sharded shadow pass captured at the shadow budget."""
-        cfg, budget = self.config, self._shadow_budget
-        return self._programs.get(
-            "shadow", (budget, cfg.shadow_extent),
-            lambda: render_shadow_pass_sharded(
-                self.scene_dev, unpack_params(self._u, self.n_shadows), cfg,
-                self.n_shadows, self.mesh, self.backend, max_pairs=budget))
+    def _shadow_pass(self, cfg: RenderConfig, budget: int):
+        return render_shadow_pass_sharded(
+            self.scene_dev, unpack_params(self._u, self.n_shadows), cfg,
+            self.n_shadows, self.mesh, self.backend, max_pairs=budget)
 
     def program_stats(self) -> dict:
-        """The mode (``captured`` over NCCL, ``eager`` over gloo), the
-        transport, each program's captures and replays and the captured
-        programs' measurements (``CapturedProgram.stats``)."""
-        return {"mode": "captured" if self._graphs else "eager",
-                "transport": self.mesh.transport, **self._programs.stats()}
-
-    def render_eager(self):
-        """The frame the program replays, dispatched op by op over the
-        renderer's state (the uniform of the last frame, the shadow pack,
-        the tables): the eager path of ``render()``; over NCCL, for
-        comparisons. Every rank must call it."""
-        return self._frame_fn()()
-
-    def render(self, view_props: ViewProperties | None = None):
-        """Render one frame: returns ([H,W,4] u8 on this rank's device, the
-        whole frame on every rank; whole-frame stats). Every rank must
-        call it with the same camera. Captured, a warm frame is a replay
-        and returns clones of the graph's outputs."""
-        return self._render(self.params_for_camera(view_props),
-                            None if view_props is None
-                            else float(view_props.exposure))
-
-    def _render_shadows(self) -> None:
-        """The cached sharded shadow pass, copied into the pack the frame
-        reads; its overflow is read once per dirty cycle."""
-        if self._graphs:
-            self._shadow_program()
-            maps, ov = self._programs.replay("shadow")
-        else:
-            maps, ov = render_shadow_pass_sharded(
-                self.scene_dev, unpack_params(self._u, self.n_shadows),
-                self.config, self.n_shadows, self.mesh, self.backend,
-                max_pairs=self._shadow_budget)
-        if self._shadow_maps is None:
-            self._shadow_maps = maps
-        else:
-            for dst, src in zip(self._shadow_maps, maps):
-                dst.copy_(src)
-        self.shadow_overflow = int(ov)     # a one-off read per dirty
-        self._shadows_dirty = False
-
-    def _render(self, host_params: dict, exposure: float | None = None):
-        # the single card's uniform, so the params are the same float32
-        # values
-        uniforms.upload(self._u, uniforms.pack_params(host_params,
-                                                      self.n_shadows))
-        bake = False
-        if self.config.texture_space:
-            e = (float(self.scene_host.camera.exposure) if exposure is None
-                 else exposure)
-            if e != self._baked_exposure:
-                self._baked_exposure = e
-                bake = True
-        progs = self._programs if self._graphs else None
-        if self.n_shadows > 0 and self._shadows_dirty:
-            self._render_shadows()
-            if self.config.texture_space:
-                # per-texel PCF visibility from the new maps, then the
-                # static light tables (FrameRenderer's policy)
-                fgraph.bake_tss(self.tss_bakes(True), progs)
-        elif bake:
-            fgraph.bake_tss(self.tss_bakes(False), progs)
-        if not self._graphs:
-            return self.render_eager()
-        img, stats = self._programs.replay("frame")
-        # the next replay overwrites the graph's outputs
-        return img.clone(), {k: v.clone() for k, v in stats.items()}
+        """``FrameRenderer.program_stats`` and the collective transport."""
+        return {**super().program_stats(), "transport": self.mesh.transport}
 
 
 def build_sharded_renderer(scene_host, config: RenderConfig, mesh: Mesh,
@@ -561,7 +411,7 @@ def build_sharded_renderer(scene_host, config: RenderConfig, mesh: Mesh,
                                  "they were captured with")
             r.scene_dev = scene_dev
             r._local = shard_scene(scene_dev, mesh)
-        return r._render(params)[0]
+        return r._render(None, None, params)[0]
 
     return fn, r.scene_dev, r.params_for_camera
 

@@ -13,9 +13,6 @@ built (``todo.md:20`` RenderDoc debug info; SURVEY §5 'tracing: none').
 - ``frame_trace()``: one record per frame that ``FrameRenderer.render()``
   made while a profiler session was active (host ms of each ``host.*``
   span, host syncs, device ms of each stamped region).
-- ``time_frames``: the time of ``fn()`` per call, with CUDA events on the
-  card (the device's own clock, from the first queued op to the last) and
-  the host clock around a synchronize on the CPU.
 - ``trace``: a context manager around ``torch.profiler`` that exports a
   Chrome trace (chrome://tracing, Perfetto) of what runs inside it.
 """
@@ -26,7 +23,6 @@ import contextlib
 import os
 import time
 
-import numpy as np
 import torch
 import torch.autograd.profiler as _autograd_profiler
 from torch.profiler import record_function
@@ -201,35 +197,6 @@ def frame_trace() -> list[dict]:
 
 def _is_cuda(device) -> bool:
     return device is not None and torch.device(device).type == "cuda"
-
-
-def time_frames(fn, reps: int = 8, warmup: int = 1, device=None) -> dict:
-    """Median/min/max time of ``fn()`` in seconds over ``reps`` calls,
-    after ``warmup`` calls. On a CUDA ``device`` each call is bracketed by
-    CUDA events recorded on the current stream (the host is free while
-    the card works; the wait is on the second event alone); elsewhere by
-    the host clock."""
-    cuda = _is_cuda(device)
-    for _ in range(warmup):
-        fn()
-    if cuda:
-        torch.cuda.synchronize(device)
-    times = []
-    for _ in range(reps):
-        if cuda:
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b) / 1e3)
-        else:
-            t0 = time.perf_counter()
-            fn()
-            times.append(time.perf_counter() - t0)
-    return {"median": float(np.median(times)), "min": float(min(times)),
-            "max": float(max(times)), "reps": reps}
 
 
 @contextlib.contextmanager

@@ -23,8 +23,6 @@ pass's kernel (its ``/ 255`` is PyTorch's CUDA multiply by the
 reciprocal), and the texture-space frame through it the frame through
 its plain version."""
 
-import os
-
 import numpy as np
 import pytest
 import torch
@@ -44,10 +42,6 @@ from renderengine_tpu_torch.tools import goldens
 from renderengine_tpu_torch.tools import split_stress as ss
 
 torch.set_num_threads(2)
-
-# the renderers here estimate their budgets: never adopt a record an
-# earlier process left (this file runs without tests/conftest.py too)
-os.environ["RENDERENGINE_TUNED_CACHE"] = "0"
 
 CASES = [(64, 48, CullMode.NONE, 16), (53, 37, CullMode.BACK, 12),
          (97, 61, CullMode.NONE, 60)]

@@ -182,3 +182,57 @@ def test_captured_mode_replays_each_program_when_due(mesh, monkeypatch):
         assert {n: after[n] - before[n] for n in after} == want[kind], kind
         assert torch.equal(img, ref), kind
     assert len(made) == 4
+
+
+def test_sharded_renderer_is_a_frame_renderer_without_a_controller(
+        mesh, monkeypatch):
+    """``ShardedRenderer`` is ``FrameRenderer`` over a mesh with no budget
+    controller: from a config with ``auto_tune_pairs`` no estimator runs,
+    the frame program binds the config it was given, the shadow pass's
+    budget is the per-triangle default of the padded upload, and frames
+    change none of them."""
+    from renderengine_tpu_torch.graph import frame as fgraph
+    from renderengine_tpu_torch.graph import program
+
+    def refuse(self, *a):
+        raise AssertionError("an estimator ran")
+
+    for name in ("_estimate_pair_budget", "_estimate_blend_budgets",
+                 "_estimate_shadow_budget"):
+        monkeypatch.setattr(FrameRenderer, name, refuse)
+    monkeypatch.setattr(program, "CapturedProgram", _StandInProgram)
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device: None)
+    cfg = CONFIGS["tss_headline"]
+    assert cfg.raster.auto_tune_pairs
+    nccl = sharded.Mesh(1, 0, mesh.device, "nccl")
+    sr = sharded.ShardedRenderer(_sponza(), cfg, nccl)
+    assert isinstance(sr, FrameRenderer) and not sr._react_overflow
+    assert sr.config == cfg and sr._programs.progs["frame"].key == cfg
+    n_tris = int(sr.scene_dev["tri_vidx"].shape[0])
+    assert sr._shadow_budget_val == fgraph._pair_budget(
+        n_tris, cfg.raster.pairs_per_tri)
+    for _ in range(2):
+        sr.render()
+    assert sr.config == cfg and sr.program_counts["frame_captures"] == 1
+
+
+def test_profiled_sharded_render_leaves_a_record(mesh):
+    """Under ``torch.profiler`` a ``ShardedRenderer.render()`` leaves a
+    ``profiling.frame_trace()`` record with the host spans of the
+    renderer's host side, as ``FrameRenderer.render()`` does; with no
+    poll its device ms stay unread."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from renderengine_tpu_torch.utils import profiling
+
+    _, _, sr = _pair("per_pixel", mesh)
+    with profile(activities=[ProfilerActivity.CPU]):
+        sr.render()
+    sr.render()
+    rec, = profiling.frame_trace()
+    assert rec is sr.frame_records[0]
+    assert rec["dirty"] and not rec["replayed"] and rec["syncs"] == 1
+    assert {"host.shadow_fit", "host.upload",
+            "host.shadow_read"} <= set(rec["host_ms"])
+    assert "host.queue_stats" not in rec["host_ms"]
+    assert rec["device_ms"] is None and sr.host_syncs == 1

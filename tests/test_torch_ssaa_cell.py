@@ -7,7 +7,6 @@ with the resolve the reference holds it to. This file imports no JAX.
 """
 
 import json
-import os
 
 import numpy as np
 import pytest
@@ -22,8 +21,6 @@ from renderengine_tpu_torch.graph import frame as frame_mod
 from renderengine_tpu_torch.graph.frame import FrameRenderer
 from renderengine_tpu_torch.scene import procedural
 from renderengine_tpu_torch.scene.camera import ViewProperties
-
-os.environ["RENDERENGINE_TUNED_CACHE"] = "0"
 
 CELL = "tss_ssaa2.orbit"
 W, H = 96, 64

@@ -11,8 +11,6 @@ imports no JAX:
     python -m pytest --noconftest -q -m gpu tests/test_torch_trace.py
 """
 
-import os
-
 import numpy as np
 import pytest
 import torch
@@ -23,8 +21,6 @@ from renderengine_tpu_torch.graph.frame import FrameRenderer
 from renderengine_tpu_torch.graph.render_loop import RenderLoop
 from renderengine_tpu_torch.scene import procedural
 from renderengine_tpu_torch.utils import profiling
-
-os.environ["RENDERENGINE_TUNED_CACHE"] = "0"
 
 _BASE = RenderConfig(width=128, height=96, shadow_extent=256)
 _TSS = _BASE.replace(debug_views=False, texture_space=True,
