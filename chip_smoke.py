@@ -137,7 +137,13 @@ Sponza (260k triangles, 200 textures of 512^2), checking their output:
   ``PEEL_POSE`` its eager frame's peel call (1920x1080, 3840x2160) is held
   bit for bit against the plain version (eager, a row band, replayed from
   a CUDA graph) and timed beside its bytes bound (``tss_peel_bound``);
-  the frame with the plain version in its place is the same.
+  the frame with the plain version in its place is the same;
+- the factored texture-space screen pass (phase tss-shade,
+  ``csrc/tss_shade.cu``): the same frames and pose; its call (1920x1080,
+  3840x2160) held bit for bit against the plain version (eager, a band
+  starting on the odd row 537, replayed from a CUDA graph) and timed
+  beside its bytes bound (``tss_shade_bound``); the frame with the plain
+  version in its place is the same.
 Each phase is fatal: any failure exits non-zero without the final line.
 Before the last line it prints the card's name and power limit (as
 ``nvidia-smi`` reports them), one JSON line of per-kernel numbers and one
@@ -204,6 +210,8 @@ ANISO_SOURCE = "renderengine_tpu_torch/csrc/aniso_slots.cu"
 # frames, then its peel call is taken at pose PEEL_POSE
 PEEL_FRAMES, PEEL_POSE = 64, 300
 PEEL_SOURCE = "renderengine_tpu_torch/csrc/tss_peel.cu"
+# phase tss-shade: the same frames and pose for the factored screen pass
+SHADE_SOURCE = "renderengine_tpu_torch/csrc/tss_shade.cu"
 # history, not measured by this run: the one-block-per-tile kernels'
 # times before the split walk on an NVIDIA H100 80GB HBM3 at 700.00 W
 # (PERF.md, from this script as it was then), and the warm frames
@@ -982,6 +990,100 @@ def tss_peel_bound(rgb, layers, factor: bool):
     return bytes_moved / HBM_BYTES_PER_S * 1e3, bytes_moved, covered
 
 
+def tss_call_at_pose(fr, cr, scene, cfg, orbit, reset_counts, counter,
+                     wrapper, plain, copy=lambda a, kw: (a, kw)):
+    """A headline renderer of ``cfg`` over ``PEEL_FRAMES`` orbit frames and
+    then ``PEEL_POSE``, through the controller and the captured frame: one
+    ``counter`` launch a frame, replays included. Its eager frame's calls
+    of ``lightchart.<wrapper>`` are recorded (``copy`` of each call's
+    (args, kwargs) as it entered), and the eager frame with ``plain`` in
+    the kernel's place is rendered: both must equal the replayed frame
+    byte for byte. Returns (record, the calls, the settling frames'
+    stats)."""
+    from renderengine_tpu_torch.shading import lightchart as lc
+
+    r = fr.FrameRenderer(scene, cfg)
+    reset_counts()
+    p0 = dict(r.program_counts)
+    stats = [r.render(orbit.vp(i))[1] for i in range(PEEL_FRAMES)]
+    img, _ = r.render(orbit.vp(PEEL_POSE))
+    torch.cuda.synchronize()
+    launches = cr.launch_counts[counter]
+    caps = counts_delta(p0, r.program_counts)
+    frames = caps["frame_replays"] + caps["frame_captures"]
+    dropped = sum(any(int(v) for k, v in st.items() if "overflow" in k)
+                  for st in stats[1:])
+    rec = {"launches": launches, "frames": frames, "programs": caps,
+           "frames_dropping_work": dropped}
+    if launches != frames:
+        raise AssertionError(f"{counter}: {rec}")
+    r._react_overflow = False
+    calls = []
+    real = getattr(lc, wrapper)
+
+    def record(*a, **kw):
+        calls.append(copy(a, kw))
+        return real(*a, **kw)
+
+    with mock.patch.object(lc, wrapper, record):
+        eager, _ = r.render_eager()
+    with mock.patch.object(lc, wrapper, plain):
+        plain_img, _ = r.render_eager()
+    torch.cuda.synchronize()
+    if len(calls) != 1 or not torch.equal(eager, img) or \
+            not torch.equal(plain_img, img):
+        raise AssertionError(f"{counter}: {len(calls)} calls; replay, "
+                             f"eager and plain frames equal: "
+                             f"{torch.equal(eager, img)}, "
+                             f"{torch.equal(plain_img, img)}")
+    return rec, calls, stats
+
+
+def replayed_exact(kern, prepare, want_fn) -> bool:
+    """``kern`` (a wrapper call returning its output) captured alone in a
+    CUDA graph and replayed after ``prepare()``: its output bit for bit
+    against ``want_fn()``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kern()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = kern()
+    torch.cuda.current_stream().wait_stream(side)
+    prepare()
+    graph.replay()
+    want = want_fn()
+    torch.cuda.synchronize()
+    return torch.equal(out.view(torch.int32), want.view(torch.int32))
+
+
+def timed_row(name, source, kernel, kern, plain, launches, err, bound_ms):
+    """A kernel row of a call: ``plain`` once (CUDA events), ``kern`` in 3
+    rounds of 30 (the median), in a graph, the profiler's device time of
+    ``kernel`` and the host time a call. Returns (row, rounds)."""
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    plain()
+    t1.record()
+    torch.cuda.synchronize()
+    plain_ms = t0.elapsed_time(t1)
+    rounds = [cuda_ms(kern, 30) for _ in range(3)]
+    t = {"ms": statistics.median(rounds), "rounds_ms": rounds,
+         "in_graph_ms": graph_ms(kern, 30),
+         "device_ms": device_ms(kern, 10, kernels=(kernel,)),
+         "host_ms": host_ms(kern, 30)}
+    log(f"  times [{name}]: {t}")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": None, "launches": launches, "max_abs_err": err,
+            "ms": t["ms"], "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None,
+            "in_graph_ms": t["in_graph_ms"], "densest_tile_ms": None,
+            "launch_over_densest": None, "device_ms": t["device_ms"],
+            "host_ms": t["host_ms"], "pairs": None}, rounds
+
+
 def tss_peel_phase(fr, cr, scene, tss_cfg, dev, reset_counts):
     """Phase tss-peel: the texture-space peel pass's kernel at the
     headline's shapes. The 1080p headline and its ``ssaa=2`` twin
@@ -998,53 +1100,25 @@ def tss_peel_phase(fr, cr, scene, tss_cfg, dev, reset_counts):
     import bench_torch
     from renderengine_tpu_torch.shading import lightchart as lc
 
+    def copy(a, kw):
+        rgb, rb, ab, layers, ah, aw = a[:6]
+        mat = a[6] if len(a) > 6 else kw.get("mat_all")
+        return (rgb.clone(), rb, ab,
+                [tuple(t.clone() for t in la) for la in layers], ah, aw, mat)
+
     t_phase = time.time()
     orbit = bench_torch.Orbit(scene.camera)
     rows, res = [], {}
     try:
         for name, cfg in (("tss_peel", tss_cfg),
                           ("tss_peel_4k", tss_cfg.replace(ssaa=2))):
-            r = fr.FrameRenderer(scene, cfg)
-            reset_counts()
-            p0 = dict(r.program_counts)
-            stats = []
-            for i in range(PEEL_FRAMES):
-                stats.append(r.render(orbit.vp(i))[1])
-            img, _ = r.render(orbit.vp(PEEL_POSE))
-            torch.cuda.synchronize()
-            launches = cr.launch_counts["tss_peel"]
-            caps = counts_delta(p0, r.program_counts)
-            frames = caps["frame_replays"] + caps["frame_captures"]
+            rec, calls, stats = tss_call_at_pose(
+                fr, cr, scene, cfg, orbit, reset_counts, "tss_peel",
+                "tss_peel_composite", lc.tss_peel_composite_plain, copy)
             shade_tiles = sum("blend_shade_tiles" in st for st in stats)
-            dropped = sum(any(int(v) for k, v in st.items()
-                              if "overflow" in k) for st in stats[1:])
-            rec = {"launches": launches, "frames": frames, "programs": caps,
-                   "frames_with_shade_tiles": shade_tiles,
-                   "frames_dropping_work": dropped}
-            if launches != frames or shade_tiles:
+            rec["frames_with_shade_tiles"] = shade_tiles
+            if shade_tiles:
                 raise AssertionError(f"{name}: {rec}")
-            r._react_overflow = False
-            calls = []
-            real = lc.tss_peel_composite
-
-            def record(rgb, rb, ab, layers, ah, aw, mat_all=None):
-                calls.append((rgb.clone(), rb, ab,
-                              [tuple(t.clone() for t in la) for la in layers],
-                              ah, aw, mat_all))
-                return real(rgb, rb, ab, layers, ah, aw, mat_all)
-
-            with mock.patch.object(lc, "tss_peel_composite", record):
-                eager, _ = r.render_eager()
-            with mock.patch.object(lc, "tss_peel_composite",
-                                   lc.tss_peel_composite_plain):
-                plain_img, _ = r.render_eager()
-            torch.cuda.synchronize()
-            if len(calls) != 1 or not torch.equal(eager, img) or \
-                    not torch.equal(plain_img, img):
-                raise AssertionError(f"{name}: {len(calls)} calls; replay, "
-                                     f"eager and plain frames equal: "
-                                     f"{torch.equal(eager, img)}, "
-                                     f"{torch.equal(plain_img, img)}")
             rgb, rb, ab, layers, ah, aw, mat = calls[0]
             band = [tuple(t[536:].contiguous() for t in la) for la in layers]
             exact, err = True, 0.0
@@ -1063,65 +1137,121 @@ def tss_peel_phase(fr, cr, scene, tss_cfg, dev, reset_counts):
                 return lc.tss_peel_composite(buf, rb, ab, layers, ah, aw,
                                              mat)
 
-            # the launch replayed from a graph over the call's colour
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                kern()
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph, stream=side):
-                    kern()
-            torch.cuda.current_stream().wait_stream(side)
-            buf.copy_(rgb)
-            graph.replay()
-            want = lc.tss_peel_composite_plain(rgb.clone(), rb, ab, layers,
-                                               ah, aw, mat)
-            torch.cuda.synchronize()
-            exact &= torch.equal(buf.view(torch.int32),
-                                 want.view(torch.int32))
-            del graph
+            def plain(rgb=rgb, rb=rb, ab=ab, layers=layers, ah=ah, aw=aw,
+                      mat=mat):
+                return lc.tss_peel_composite_plain(rgb.clone(), rb, ab,
+                                                   layers, ah, aw, mat)
+
+            exact &= replayed_exact(kern, lambda: buf.copy_(rgb), plain)
             log(f"  tss_peel vs plain [{name}, {tuple(rgb.shape[:2])}, "
                 f"factor alpha {mat is not None}]: eager, band and replayed "
                 f"exact={exact}, max_abs_err={err!r}")
             if not exact:
                 raise AssertionError(f"tss_peel disagrees ({name})")
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            lc.tss_peel_composite_plain(rgb.clone(), rb, ab, layers, ah, aw,
-                                        mat)
-            t1.record()
-            torch.cuda.synchronize()
-            plain_ms = t0.elapsed_time(t1)
-            rounds = [cuda_ms(kern, 30) for _ in range(3)]
             bound_ms, bytes_moved, covered = tss_peel_bound(
                 rgb, layers, mat is not None)
-            t = {"ms": statistics.median(rounds), "rounds_ms": rounds,
-                 "in_graph_ms": graph_ms(kern, 30),
-                 "device_ms": device_ms(kern, 10,
-                                        kernels=("tss_peel_kernel",)),
-                 "host_ms": host_ms(kern, 30)}
-            log(f"  times [{name}]: {t}")
-            rows.append({
-                "name": name, "route": "cuda", "source": PEEL_SOURCE,
-                "replaces": None, "launches": launches,
-                "max_abs_err": err, "ms": t["ms"], "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": "bytes",
-                "library_ms": None, "in_graph_ms": t["in_graph_ms"],
-                "densest_tile_ms": None, "launch_over_densest": None,
-                "device_ms": t["device_ms"], "host_ms": t["host_ms"],
-                "pairs": None})
+            row, rounds = timed_row(name, PEEL_SOURCE, "tss_peel_kernel",
+                                    kern, plain, rec["launches"], err,
+                                    bound_ms)
+            rows.append(row)
             rec.update({"shape": list(rgb.shape[:2]), "bytes": bytes_moved,
                         "covered_layer_pixels": covered,
                         "factor_alpha": mat is not None,
                         "rounds_ms": rounds})
             res[name] = rec
-            del r, calls, rgb, layers, band, buf, want, img, eager, plain_img
+            del calls, rgb, layers, band, buf, want
             torch.cuda.empty_cache()
     finally:
         orbit.restore()
     res["wall_s"] = time.time() - t_phase
     log(f"phase tss-peel: {res}")
+    return rows, res
+
+
+def tss_shade_bound(args):
+    """The least time the card could take for one launch of the factored
+    screen pass at the headline's settings (one dithered tap a pixel with
+    a base texture): (ms, bytes, pixels with a base texture). Bytes: the
+    pixel's chart uv, uv, material id and coverage read once (21 B), its
+    rgba written once (16 B), one 32-byte light row a half-grid site, and
+    the tap's 2x2 block (16 B for a u8 atlas, 32 B for u16) at every pixel
+    whose material has a base texture; the material rows stay in cache."""
+    scene, chart_uv, _, mat_id, _, _, _, _ = args
+    h, w = chart_uv.shape[:2]
+    n_mat = scene["mat_all"].shape[0]
+    m = torch.where(mat_id < 0, mat_id + n_mat, mat_id).long()
+    textured = int((scene["mat_all"][m, 16] >= 0).sum())
+    block = 4 * scene["atlas"].shape[3]
+    bytes_moved = (h * w * (21 + 16) + ((h + 1) // 2) * ((w + 1) // 2) * 32
+                   + textured * block)
+    return bytes_moved / HBM_BYTES_PER_S * 1e3, bytes_moved, textured
+
+
+def tss_shade_phase(fr, cr, scene, tss_cfg, dev, reset_counts):
+    """Phase tss-shade: the factored texture-space screen pass's kernel at
+    the headline's shapes. The 1080p headline and its ``ssaa=2`` twin
+    (3840x2160 inside) each render ``PEEL_POSE`` of the orbit after
+    ``PEEL_FRAMES`` orbit frames through the controller and the captured
+    frame (one screen-pass launch a frame, replays included); the eager
+    frame's call is held bit for bit against the plain version, eager, on
+    a row band starting on the odd row 537 and replayed from a CUDA graph,
+    and timed (CUDA-event median of 3 rounds of 30, in a graph, the
+    profiler's device time, the host time a call) beside its bound
+    (``tss_shade_bound``) and the plain version's time. The frame with the
+    plain version in the kernel's place is the same, byte for byte.
+    Returns the two kernel rows and the phase's record."""
+    import bench_torch
+    from renderengine_tpu_torch.shading import lightchart as lc
+
+    t_phase = time.time()
+    orbit = bench_torch.Orbit(scene.camera)
+    rows, res = [], {}
+    try:
+        for name, cfg in (("tss_shade", tss_cfg),
+                          ("tss_shade_4k", tss_cfg.replace(ssaa=2))):
+            rec, calls, _ = tss_call_at_pose(
+                fr, cr, scene, cfg, orbit, reset_counts, "tss_shade",
+                "tss_shade_halfres", lc.tss_shade_halfres_plain)
+            a, kw = calls[0]
+            cov = kw.pop("covered")
+            sc, cu, uv, mat, l8, ah, aw = a
+            rows_b = slice(537, 537 + 542)
+            band = (sc, cu[rows_b], uv[rows_b], mat[rows_b], l8, ah, aw)
+            exact, err = True, 0.0
+            for call, ckw in ((a, dict(kw, covered=cov)),
+                              (band, dict(kw, covered=cov[rows_b], y0=537))):
+                got = lc.tss_shade_halfres(*call, **ckw)
+                want = lc.tss_shade_halfres_plain(*call, **ckw)
+                exact &= torch.equal(got.view(torch.int32),
+                                     want.view(torch.int32))
+                err = max(err, max_abs_err(got, want))
+
+            def kern(a=a, kw=kw, cov=cov):
+                return lc.tss_shade_halfres(*a, covered=cov, **kw)
+
+            def plain(a=a, kw=kw, cov=cov):
+                return lc.tss_shade_halfres_plain(*a, covered=cov, **kw)
+
+            exact &= replayed_exact(kern, lambda: None, plain)
+            log(f"  tss_shade vs plain [{name}, {tuple(cu.shape[:2])}]: "
+                f"eager, band and replayed exact={exact}, "
+                f"max_abs_err={err!r}")
+            if not exact:
+                raise AssertionError(f"tss_shade disagrees ({name})")
+            bound_ms, bytes_moved, textured = tss_shade_bound((*a, cov))
+            row, rounds = timed_row(name, SHADE_SOURCE, "tss_shade_kernel",
+                                    kern, plain, rec["launches"], err,
+                                    bound_ms)
+            rows.append(row)
+            rec.update({"shape": list(cu.shape[:2]), "bytes": bytes_moved,
+                        "textured_pixels": textured, "rounds_ms": rounds})
+            res[name] = rec
+            del calls, a, band, got, want
+            torch.cuda.empty_cache()
+    finally:
+        orbit.restore()
+    res["wall_s"] = time.time() - t_phase
+    log(f"phase tss-shade: {res}")
     return rows, res
 
 
@@ -2265,6 +2395,16 @@ def main() -> None:
     except Exception as e:  # noqa: BLE001
         fail(phase, e)
 
+    # phase: the factored texture-space screen pass's kernel at the
+    # headline's 1080p and 3840x2160 (ssaa=2) calls, bit-exact against its
+    # plain version and timed
+    phase = "tss-shade"
+    try:
+        shade_rows, shade_res = tss_shade_phase(fr, cr, scene, tss_cfg, dev,
+                                                reset_counts)
+    except Exception as e:  # noqa: BLE001
+        fail(phase, e)
+
     # phase: the compiled frame. For the per-pixel default, the TSS
     # headline and the app's per-pixel config (2048^2 maps), each with the
     # poll on: the renderer captures its frame and shadow programs at init
@@ -3069,7 +3209,8 @@ def main() -> None:
     ] + [row(name, b["launches"], b["err"], times[name]["ms"],
              b["plain_ms"], b["bound"][0], b["bound"][1],
              k2=name.startswith("merged"), pairs=b["pairs"])
-         for name, b in ssaa2_rows.items()] + aniso_rows + peel_rows
+         for name, b in ssaa2_rows.items()] + aniso_rows + peel_rows \
+        + shade_rows
     for k in kernels:
         log(f"{k['name']}: {k['ms']!r} ms in this run, in a graph "
             f"{k['in_graph_ms']!r} ms, device "
@@ -3132,7 +3273,7 @@ def main() -> None:
                         "launches_app_path": app_shadow_launches},
         "graph": graph_res, "app": app, "sharded": sharded_res,
         "orbit": orbit_res, "ssaa2": ssaa2_res, "workspace": ws_res,
-        "aniso": aniso_res, "tss_peel": peel_res,
+        "aniso": aniso_res, "tss_peel": peel_res, "tss_shade": shade_res,
         "ssaa2_kernels": {k: {"ops": b["bound"][2], "bytes": b["bound"][3]}
                           for k, b in ssaa2_rows.items()},
         "width": SPONZA_W, "height": SPONZA_H, "card": card,

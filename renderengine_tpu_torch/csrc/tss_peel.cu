@@ -44,11 +44,12 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include "sampler.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kLayers = 2;
-constexpr int kEBias = 24;  // lightchart._E_BIAS
 
 struct Layer {
   const int* tri;
@@ -67,24 +68,6 @@ struct Args {
   int aw;
   float x_max, y_max;
 };
-
-__device__ __forceinline__ float mul(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ float add(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ float sub(float a, float b) {
-  return __fsub_rn(a, b);
-}
-
-// lightchart.rgb9e5_decode_planes, one channel: exact (a 9-bit integer
-// times a power of two)
-__device__ __forceinline__ float decode(int word, int shift) {
-  const float scale = __int_as_float((127 - kEBias + ((word >> 27) & 31))
-                                     << 23);
-  return mul(static_cast<float>((word >> shift) & 511), scale);
-}
 
 // (c00 * (1 - fx) + c10 * fx) * (1 - fy) + (c01 * (1 - fx) + c11 * fx) * fy
 __device__ __forceinline__ float bilerp(float c00, float c10, float c01,
@@ -112,8 +95,8 @@ __device__ __forceinline__ void shade(const Args& a, const Layer& l,
   const int4 b = __ldg(a.rgb_blocks + flat);
   for (int ch = 0; ch < 3; ++ch) {
     const int s = 9 * ch;
-    c[ch] = bilerp(decode(b.x, s), decode(b.y, s), decode(b.z, s),
-                   decode(b.w, s), fx, fy, gx, gy);
+    c[ch] = bilerp(rgb9e5(b.x, s), rgb9e5(b.y, s), rgb9e5(b.z, s),
+                   rgb9e5(b.w, s), fx, fy, gx, gy);
   }
   if (a.a_blocks != nullptr) {
     const int ar = __ldg(a.a_blocks + flat);

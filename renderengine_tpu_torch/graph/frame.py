@@ -439,7 +439,9 @@ def _tss_shade_fns(scene, config: RenderConfig, ls_atlas, slots_used,
     compose albedo * diffuse + specular in chart space and the screen pass
     is one rgb9e5 block gather (+ an alpha block, or the material factor
     alpha when ``alpha_is_factor``). Dense passes at chart density <= 0.5
-    (or ``tss_halfres_light=1``) sample on the half-res pixel grid.
+    (or ``tss_halfres_light=1``) sample on the half-res pixel grid; the
+    factored one is one kernel launch on a CUDA device
+    (``lightchart.tss_shade_halfres``).
     ``tss_preshaded_blend`` pre-shades only the peels."""
     c_ah, c_aw = ls_atlas.shape[1:]
     pre_any = config.tss_preshaded or config.tss_preshaded_blend

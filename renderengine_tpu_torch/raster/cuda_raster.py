@@ -33,9 +33,10 @@ its kernel or raises — there is no fallback.
 
 The kernels' library also holds the tiered anisotropic sampler
 (``csrc/aniso_slots.cu``, wrapped by ``shading.sampling.aniso_slots``)
-and the texture-space peel pass (``csrc/tss_peel.cu``, wrapped by
-``shading.lightchart.tss_peel_composite``), counted here beside K1 and
-K2.
+the texture-space peel pass (``csrc/tss_peel.cu``, wrapped by
+``shading.lightchart.tss_peel_composite``) and the factored texture-space
+screen pass (``csrc/tss_shade.cu``, wrapped by
+``shading.lightchart.tss_shade_halfres``), counted here beside K1 and K2.
 """
 
 from __future__ import annotations
@@ -66,10 +67,12 @@ MAT_LIMIT = 1 << 24       # ids must stay exact as integer-valued f32
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "raster_tile.cu"          # K1 and K2
-# every source of the one library: K1, K2, the tiered aniso sampler and
-# the texture-space peel pass
+# every source of the one library: K1, K2, the tiered aniso sampler, the
+# texture-space peel pass and the factored texture-space screen pass; the
+# last three include the shared device functions of HEADERS
 SOURCES = (SOURCE, _PKG / "csrc" / "aniso_slots.cu",
-           _PKG / "csrc" / "tss_peel.cu")
+           _PKG / "csrc" / "tss_peel.cu", _PKG / "csrc" / "tss_shade.cu")
+HEADERS = (_PKG / "csrc" / "sampler.cuh",)
 BUILD_DIR = _PKG / "build"
 K1_ATTRS = (0, 4, 8)      # the attribute counts K1 is built for
 K2_ATTRS = 4              # attributes a K2 pair row carries
@@ -79,13 +82,14 @@ K2_ATTRS_B = (2, 4)       # attribute prefixes K2's blend layers interpolate
 # and the same launches by variant: (n_attrs, peel, dual) for K1,
 # ("merged", n_attrs_b) for K2; ``aniso_slots`` counts the tiered aniso
 # sampler (``shading.sampling.aniso_slots``), ``tss_peel`` the
-# texture-space peel pass (``shading.lightchart.tss_peel_composite``). A
-# call during a CUDA graph
+# texture-space peel pass (``shading.lightchart.tss_peel_composite``),
+# ``tss_shade`` the factored texture-space screen pass
+# (``shading.lightchart.tss_shade_halfres``). A call during a CUDA graph
 # capture launches nothing: ``graph.program.CapturedProgram`` moves the
 # counts of its capture into its own record and adds them back at each
 # replay, which launches the kernels
 launch_counts = {"raster_tile": 0, "merged_tile": 0, "aniso_slots": 0,
-                 "tss_peel": 0}
+                 "tss_peel": 0, "tss_shade": 0}
 # other device work of the wrappers, counted apart: the zeroing of a new
 # or grown workspace (a memset, once per device and size)
 helper_counts = {"workspace_zero": 0}
@@ -173,9 +177,11 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile ``SOURCES`` into one library in ``build/`` (once per
-    content of the sources) and return its path. The ptxas report
-    (registers, shared memory, spills) is kept beside it as ``.log``."""
-    digest = hashlib.sha1(b"".join(p.read_bytes() for p in SOURCES))
+    content of the sources and ``HEADERS``) and return its path. The
+    ptxas report (registers, shared memory, spills) is kept beside it as
+    ``.log``."""
+    digest = hashlib.sha1(b"".join(p.read_bytes()
+                                   for p in SOURCES + HEADERS))
     so = BUILD_DIR / f"libraster_tile_{digest.hexdigest()[:12]}.so"
     if so.exists():
         return so
@@ -226,6 +232,14 @@ def _library():
         lib.tss_peel_launch.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 6
             + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+        lib.tss_shade_launch.restype = ctypes.c_int
+        lib.tss_shade_launch.argtypes = (
+            [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 3
+            + [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_float] * 2
+            + ([ctypes.c_void_p] + [ctypes.c_longlong] * 3) * 2
+            + ([ctypes.c_void_p] + [ctypes.c_longlong] * 2) * 2
+            + [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong]
+            + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
         lib.item_pairs = lib.raster_item_pairs()
         _lib = lib
     return _lib

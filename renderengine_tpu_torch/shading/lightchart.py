@@ -821,16 +821,107 @@ def _albedo_tap(scene, uv, mat_id, slots_used, max_aniso, dither, covered,
     return alb, ta * factor_a
 
 
-def tss_shade_halfres(scene, chart_uv, uv, mat_id, light8,
-                      ah: int, aw: int, y0: int = 0,
-                      slots_used=(True, True, True, True),
-                      max_aniso=1, dither: bool = False, covered=None):
+def tss_shade_halfres_plain(scene, chart_uv, uv, mat_id, light8,
+                            ah: int, aw: int, y0: int = 0,
+                            slots_used=(True, True, True, True),
+                            max_aniso=1, dither: bool = False, covered=None):
     """``tss_shade`` with the half-res light path (dense [H,W] passes
-    only)."""
+    only), in plain PyTorch: the CPU path of ``tss_shade_halfres`` and its
+    kernel's comparison on the card."""
     light_d, light_s = sample_light_halfres(light8, chart_uv, ah, aw, y0)
     alb, a = _albedo_tap(scene, uv, mat_id, slots_used, max_aniso, dither,
                          covered, light_d)
     return torch.cat([alb * light_d + light_s, a[..., None]], -1)
+
+
+def _check_shade_args(scene, chart_uv, uv, mat_id, light8, ah: int, aw: int,
+                      y0: int, covered) -> None:
+    """Dtypes, shapes and device of ``tss_shade_halfres``'s arguments; on
+    a CUDA device also the tables' contiguity and alignment."""
+    def need(ok, msg):
+        if not ok:
+            raise ValueError(msg)
+
+    need(chart_uv.dtype == torch.float32 and chart_uv.dim() == 3
+         and chart_uv.shape[2] == 2, "chart_uv must be [H, W, 2] float32")
+    h, w = chart_uv.shape[:2]
+    need(h >= 2 and w >= 2, "the pass takes at least 2 x 2 pixels")
+    need(y0 % 2 == 0 or h % 2 == 0,
+         "a plane starting on an odd row must have an even height")
+    need(uv is not None and uv.dtype == torch.float32
+         and tuple(uv.shape) == (h, w, 2), "uv must be [H, W, 2] float32")
+    need(mat_id.dtype == torch.int32 and tuple(mat_id.shape) == (h, w),
+         "mat_id must be [H, W] int32")
+    need(covered is None or (covered.dtype == torch.bool
+                             and tuple(covered.shape) == (h, w)),
+         "covered must be [H, W] bool")
+    need(ah >= 2 and aw >= 2, "the chart atlas must be at least 2x2")
+    need(light8.dtype == torch.int32
+         and tuple(light8.shape) == (ah * aw, 8),
+         "light8 must be [ah * aw, 8] int32")
+    atlas, mat_all = scene["atlas"], scene["mat_all"]
+    need(atlas.dtype == torch.int32 and atlas.dim() == 4
+         and atlas.shape[3] in (4, 8),
+         "the atlas must be [pages, ah, aw, 4 or 8] int32")
+    need(scene["mip_x"].dtype == torch.int32
+         and scene["mip_y"].dtype == torch.int32,
+         "the mip tables must be int32")
+    need(mat_all.dtype == torch.float16 and mat_all.dim() == 2
+         and mat_all.shape[1] >= 22, "mat_all must be [n, >= 22] float16")
+    tabs = [light8, atlas, scene["mip_x"], scene["mip_y"], mat_all]
+    planes = [chart_uv, uv, mat_id] + ([] if covered is None else [covered])
+    need(all(t.device == chart_uv.device for t in tabs + planes),
+         "the pass's tensors must share chart_uv's device")
+    if chart_uv.device.type == "cuda":
+        need(all(t.is_contiguous() for t in tabs),
+             "the pass's tables must be contiguous")
+        need(light8.data_ptr() % 16 == 0 and atlas.data_ptr() % 16 == 0,
+             "light8 and the atlas must start on 16 bytes")
+
+
+def tss_shade_halfres(scene, chart_uv, uv, mat_id, light8,
+                      ah: int, aw: int, y0: int = 0,
+                      slots_used=(True, True, True, True),
+                      max_aniso=1, dither: bool = False, covered=None):
+    """The factored screen pass's kernel (``csrc/tss_shade.cu``): the
+    arguments of ``tss_shade_halfres_plain``, checked on every device. CPU
+    tensors take the plain version. On a CUDA device ONE launch on the
+    current stream samples the light on the half grid, upsamples it and
+    takes the albedo tap of every pixel, reading the planes in place
+    through their strides; it never synchronises and returns a new
+    [H, W, 4] float32 plane."""
+    _check_shade_args(scene, chart_uv, uv, mat_id, light8, ah, aw, y0,
+                      covered)
+    if chart_uv.device.type == "cpu":
+        return tss_shade_halfres_plain(scene, chart_uv, uv, mat_id, light8,
+                                       ah, aw, y0, slots_used, max_aniso,
+                                       dither, covered)
+    from ..raster import cuda_raster
+    from .sampling import aniso_spec
+    h, w = chart_uv.shape[:2]
+    atlas = scene["atlas"]
+    out = torch.empty((h, w, 4), dtype=torch.float32,
+                      device=chart_uv.device)
+    cov = (None, 0, 0) if covered is None else (covered.data_ptr(),
+                                                *covered.stride())
+    lib = cuda_raster._library()
+    with torch.cuda.device(chart_uv.device):
+        rc = lib.tss_shade_launch(
+            atlas.data_ptr(), atlas.shape[0] * atlas.shape[1] * atlas.shape[2],
+            atlas.shape[1], atlas.shape[2], atlas.shape[3],
+            scene["mip_x"].data_ptr(), scene["mip_y"].data_ptr(),
+            light8.data_ptr(), aw, aw - 1.001, ah - 1.001,
+            chart_uv.data_ptr(), *chart_uv.stride(), uv.data_ptr(),
+            *uv.stride(), mat_id.data_ptr(), *mat_id.stride(), *cov,
+            scene["mat_all"].data_ptr(), scene["mat_all"].shape[1],
+            scene["mat_all"].shape[0], h, w, y0 % 2,
+            int(bool(slots_used[0])), aniso_spec(max_aniso).max_taps,
+            int(bool(dither)), out.data_ptr(),
+            torch.cuda.current_stream(chart_uv.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"tss_shade launch failed: CUDA error {rc}")
+    cuda_raster.launch_counts["tss_shade"] += 1
+    return out
 
 
 def bake_albedo(scene, geo, slots_used=(True, True, True, True),

@@ -96,3 +96,55 @@ def to(args, device):
             [({k: v.to(device) for k, v in tex.items()}, nm.to(device))
              for tex, nm in sl],
             uv.to(device), dx.to(device), dy.to(device))
+
+
+def tss_shade_case(seed: int, h: int, w: int, words: int = 4,
+                   n_mat: int = 24, ah: int = 96, aw: int = 128):
+    """Inputs of the factored texture-space screen pass
+    (``lightchart.tss_shade_halfres``) from a numpy seed: the atlas, a
+    material table packed as ``mat_all`` (f16: the factor alpha in column
+    3, slot 0's descriptor in columns 16-21, about one slot in five
+    without a texture), a merged light table of random rgb9e5 words, and
+    planes made of surfaces of 12 x 20 pixels: an affine chart uv (about
+    half a chart texel a pixel, jittered, some surfaces past the atlas's
+    edges) and uv (footprints of a few texels down to a small fraction of
+    one, at any anisotropy), a material id (about one surface in ten -1,
+    which indexes the last row as PyTorch's indexing does) and coverage
+    with holes. chart uv and uv are views of one [H, W, 4] plane, as the
+    raster's attributes are. Returns (scene, chart_uv, uv, mat_id,
+    light8, ah, aw, covered)."""
+    rng = np.random.default_rng(seed)
+    at, mip_y, mip_x = atlas(rng, words)
+    table = material_table(rng, n_mat)
+    mat_all = np.zeros((n_mat, 40), np.float32)
+    mat_all[:, 3] = rng.uniform(0.0, 1.0, n_mat)
+    mat_all[:, 16:22] = table[:, 0]
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    by, bx = (np.arange(h) // 12)[:, None], (np.arange(w) // 20)[None, :]
+    nb = (h // 12 + 1, w // 20 + 1)
+
+    def per(*shape):
+        return rng.uniform(0.0, 1.0, nb + shape)[by, bx]
+
+    org = per(2) * np.array([aw + 8.0, ah + 8.0]) - 4.0
+    scale = 0.5 * (0.8 + 0.4 * per())
+    jitter = np.where(rng.random((h, w, 1)) < 0.05,
+                      rng.uniform(-2.0, 2.0, (h, w, 2)), 0.0)
+    chart = org + scale[..., None] * np.stack([xx, yy], -1) + jitter
+    mag = 2.0 ** (-12.0 + 7.0 * per(2))
+    ang = 2 * np.pi * per(2)
+    ax = np.stack([np.cos(ang[..., 0]), np.sin(ang[..., 0])], -1)
+    ay = np.stack([np.cos(ang[..., 1]), np.sin(ang[..., 1])], -1)
+    uv = (per(2) * 4.0 - 1.0 + ax * (mag[..., :1] * xx[..., None])
+          + ay * (mag[..., 1:] * yy[..., None]))
+    attrs = torch.from_numpy(np.concatenate([chart, uv], -1)
+                             .astype(np.float32))
+    mat = np.where(per() < 0.1, -1, (per() * n_mat).astype(np.int32))
+    covered = (per() < 0.85) & (rng.random((h, w)) < 0.97)
+    light8 = rng.integers(-2**31, 2**31, (ah * aw, 8),
+                          dtype=np.int64).astype(np.int32)
+    scene = {"atlas": at, "mip_y": mip_y, "mip_x": mip_x,
+             "mat_all": torch.from_numpy(mat_all.astype(np.float16))}
+    return (scene, attrs[..., 0:2], attrs[..., 2:4],
+            torch.from_numpy(mat.astype(np.int32)), torch.from_numpy(light8),
+            ah, aw, torch.from_numpy(covered))

@@ -1,7 +1,8 @@
 """Tests of the port that need a CUDA card: K1 and K2 (both in
 ``csrc/raster_tile.cu``), the tiered anisotropic sampler
-(``csrc/aniso_slots.cu``) and the texture-space peel pass
-(``csrc/tss_peel.cu``) against their plain PyTorch versions, and golden
+(``csrc/aniso_slots.cu``), the texture-space peel pass
+(``csrc/tss_peel.cu``) and the factored texture-space screen pass
+(``csrc/tss_shade.cu``) against their plain PyTorch versions, and golden
 and texture-space frames rendered through the kernels. They skip
 without a card. This file imports no JAX, so it
 also runs where only PyTorch is installed:
@@ -21,7 +22,9 @@ the same integer arithmetic), and the per-pixel frame through it equals
 the frame through the plain sampler byte for byte. So does the peel
 pass's kernel (its ``/ 255`` is PyTorch's CUDA multiply by the
 reciprocal), and the texture-space frame through it the frame through
-its plain version."""
+its plain version; so does the screen pass's kernel (its sRGB decode's
+``/ 1.055`` is the multiply by the double reciprocal rounded to float,
+its pow the same ``powf``) and the frame through it."""
 
 import numpy as np
 import pytest
@@ -1381,3 +1384,254 @@ def test_tss_orbit_drops_no_peel_work(cuda_device):
     assert all(_overflow_free(st) for st in stats)
     assert r.program_counts["frame_captures"] == caps
     assert r.config.blend_layer_tile_budgets == ()
+
+
+# --- the factored texture-space screen pass (csrc/tss_shade.cu) -------------
+
+def _shade_kernel(*args, **kw):
+    """One wrapper call on the card: one launch counted."""
+    before = cr.launch_counts["tss_shade"]
+    out = lc.tss_shade_halfres(*args, **kw)
+    assert cr.launch_counts["tss_shade"] == before + 1
+    return out
+
+
+def _shade_exact(args, **kw):
+    """The kernel against the plain version, bit for bit (the int32
+    views: NaNs and signed zeros too); returns the kernel's."""
+    got = _shade_kernel(*args, **kw)
+    want = lc.tss_shade_halfres_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+        float((got - want).abs().max())
+    return got
+
+
+def _shade_case(dev, seed, h, w, words=4):
+    """``aniso_inputs.tss_shade_case`` on ``dev``, chart uv and uv views
+    of one [H, W, 4] plane."""
+    sc, cu, uv, mat, l8, ah, aw, cov = ai.tss_shade_case(seed, h, w, words)
+    attrs = torch.cat([cu, uv], -1).to(dev)
+    return ({k: v.to(dev) for k, v in sc.items()}, attrs[..., 0:2],
+            attrs[..., 2:4], mat.to(dev), l8.to(dev), ah, aw, cov.to(dev))
+
+
+# a call's settings (y0, dither, max_taps, slot 0 used): the headline's
+# first, then exact taps, trilinear, no base texture, a band starting on
+# an odd row
+SHADE_SETTINGS = {"dither_aniso16": (0, True, 16, True),
+                  "exact_aniso16": (0, False, 16, True),
+                  "dither_trilinear": (0, True, 1, True),
+                  "exact_trilinear": (0, False, 1, True),
+                  "no_base_slot": (0, True, 16, False),
+                  "band_y0_odd": (537, True, 16, True),
+                  "band_y0_odd_exact": (537, False, 1, True)}
+
+
+def _shade_settings(name):
+    y0, dither, taps, slot0 = SHADE_SETTINGS[name]
+    return dict(y0=y0, dither=dither,
+                max_aniso=sampling.AnisoSpec(taps, (0.25, 0.15, 0.08),
+                                             (16, 4, 4, 4)),
+                slots_used=(slot0, True, True, True))
+
+
+def _shade_band(args, name):
+    """A call's arguments and settings; for a band setting, the rows
+    [y0, y0 + 542) of the planes as views (the band's half grid starts on
+    the odd global row y0)."""
+    kw = _shade_settings(name)
+    y0 = kw["y0"]
+    if not y0:
+        return args, kw
+    sc, cu, uv, mat, l8, ah, aw, cov = args
+    rows = slice(y0, y0 + 542)
+    return (sc, cu[rows], uv[rows], mat[rows], l8, ah, aw,
+            None if cov is None else cov[rows]), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("setting", list(SHADE_SETTINGS))
+def test_tss_shade_kernel_matches_plain(cuda_device, setting):
+    """Synthetic 1080p planes (u8 atlas) at every setting."""
+    args = _shade_case(cuda_device, 5, 1080, 1920)
+    band, kw = _shade_band(args, setting)
+    _shade_exact(band[:7], covered=band[7], **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["u16_odd", "no_coverage", "ssaa2"])
+def test_tss_shade_kernel_other_shapes(cuda_device, case):
+    """A u16 atlas on an odd-width plane of 38 rows starting on an odd
+    row, raw quad derivatives (no coverage), and the 3840x2160 ``ssaa=2``
+    plane at the headline's settings."""
+    kw = _shade_settings("dither_aniso16")
+    if case == "u16_odd":
+        args = _shade_case(cuda_device, 6, 38, 53, words=8)
+        for name in ("dither_aniso16", "exact_aniso16", "exact_trilinear"):
+            _shade_exact(args[:7], covered=args[7],
+                         **dict(_shade_settings(name), y0=5))
+    elif case == "no_coverage":
+        args = _shade_case(cuda_device, 7, 270, 480)
+        _shade_exact(args[:7], covered=None, **kw)
+        _shade_exact(args[:7], covered=None,
+                     **_shade_settings("exact_aniso16"))
+    else:
+        args = _shade_case(cuda_device, 8, 2160, 3840)
+        _shade_exact(args[:7], covered=args[7], **kw)
+
+
+@pytest.mark.gpu
+def test_tss_shade_kernel_replayed_in_a_graph(cuda_device):
+    """The launch captured in a CUDA graph and replayed over new planes
+    copied into its inputs: each replay equals the plain version."""
+    sc, cu, uv, mat, l8, ah, aw, cov = _shade_case(cuda_device, 9, 1080, 1920)
+    attrs = cu._base
+    kw = _shade_settings("dither_aniso16")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        lc.tss_shade_halfres(sc, cu, uv, mat, l8, ah, aw, covered=cov, **kw)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = lc.tss_shade_halfres(sc, cu, uv, mat, l8, ah, aw,
+                                       covered=cov, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    for seed in (10, 11):
+        _, cu2, uv2, mat2, l82, _, _, cov2 = _shade_case(cuda_device, seed,
+                                                         1080, 1920)
+        attrs.copy_(cu2._base)
+        for dst, src in ((mat, mat2), (l8, l82), (cov, cov2)):
+            dst.copy_(src)
+        graph.replay()
+        want = lc.tss_shade_halfres_plain(sc, cu, uv, mat, l8, ah, aw,
+                                          covered=cov, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_tss_shade_kernel_makes_no_host_sync(cuda_device):
+    args = _shade_case(cuda_device, 12, 64, 96)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for name in ("dither_aniso16", "exact_trilinear"):
+            lc.tss_shade_halfres(*args[:7], covered=args[7],
+                                 **_shade_settings(name))
+        lc.tss_shade_halfres(*args[:7], covered=None)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_tss_shade_kernel_refuses_bad_inputs(cuda_device):
+    sc, cu, uv, mat, l8, ah, aw, cov = _shade_case(cuda_device, 13, 16, 32)
+    with pytest.raises(ValueError, match="device"):
+        lc.tss_shade_halfres(sc, cu, uv, mat, l8.cpu(), ah, aw, covered=cov)
+    with pytest.raises(ValueError, match="device"):
+        lc.tss_shade_halfres(sc, cu, uv, mat.cpu(), l8, ah, aw, covered=cov)
+    shifted = torch.zeros(ah * aw * 8 + 1, dtype=torch.int32,
+                          device=cuda_device)[1:].view(ah * aw, 8)
+    with pytest.raises(ValueError, match="16 bytes"):
+        lc.tss_shade_halfres(sc, cu, uv, mat, shifted, ah, aw, covered=cov)
+    with pytest.raises(ValueError, match="float16"):
+        lc.tss_shade_halfres(dict(sc, mat_all=sc["mat_all"].float()), cu, uv,
+                             mat, l8, ah, aw, covered=cov)
+    with pytest.raises(ValueError, match="even height"):
+        lc.tss_shade_halfres(sc, cu[1:], uv[1:], mat[1:], l8, ah, aw, y0=1,
+                             covered=cov[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        lc.tss_shade_halfres(dict(sc, atlas=sc["atlas"][:, ::2]), cu, uv,
+                             mat, l8, ah, aw, covered=cov)
+
+
+def _shade_calls(monkeypatch, render):
+    """The screen pass's arguments and settings in each call of
+    ``render()``."""
+    calls = []
+    real = lc.tss_shade_halfres
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    with monkeypatch.context() as m:
+        m.setattr(lc, "tss_shade_halfres", record)
+        render()
+    return calls
+
+
+def _frame_args(call):
+    """A recorded call as (scene, chart_uv, uv, mat_id, light8, ah, aw,
+    covered)."""
+    args, kw = call
+    assert kw["dither"] and kw["max_aniso"].max_taps == 16 and kw["y0"] == 0
+    return (*args, kw["covered"])
+
+
+@pytest.mark.gpu
+def test_tss_shade_on_the_sponza_frame(cuda_device, monkeypatch):
+    """The 1080p Sponza texture-space headline at pose 300 of the
+    benchmark's orbit: one screen-pass launch a frame, eager and in every
+    replay of the captured frame; its call (the raster's attribute planes
+    read in place) kernel against plain bit for bit at every setting, a
+    band starting on row 537 included; the whole eager frame equals the
+    eager frame with the plain version monkeypatched in."""
+    r = _tss_sponza_renderer()
+    before = cr.launch_counts["tss_shade"]
+    for _ in range(3):
+        img, st = r.render()
+    torch.cuda.synchronize()
+    assert cr.launch_counts["tss_shade"] == before + 3
+    assert _overflow_free(st)
+    calls = _shade_calls(monkeypatch, r.render_eager)
+    assert len(calls) == 1
+    args = _frame_args(calls[0])
+    assert args[1].shape[:2] == (1080, 1920) and not args[1].is_contiguous()
+    for name in SHADE_SETTINGS:
+        band, kw = _shade_band(args, name)
+        _shade_exact(band[:7], covered=band[7], **kw)
+    eager = r.render_eager()[0]
+    assert torch.equal(eager, img)
+    with monkeypatch.context() as m:
+        m.setattr(lc, "tss_shade_halfres", lc.tss_shade_halfres_plain)
+        plain = r.render_eager()[0]
+    assert torch.equal(eager, plain)
+
+
+@pytest.mark.gpu
+def test_tss_shade_on_the_ssaa2_frame(cuda_device, monkeypatch):
+    """The ``ssaa=2`` headline's screen-pass call (3840x2160), kernel
+    against plain bit for bit, at its settings and with exact taps."""
+    r = _tss_sponza_renderer(ssaa=2)
+    calls = _shade_calls(monkeypatch, r.render_eager)
+    assert len(calls) == 1
+    args = _frame_args(calls[0])
+    assert args[1].shape[:2] == (2160, 3840)
+    for name in ("dither_aniso16", "exact_aniso16"):
+        _shade_exact(args[:7], covered=args[7], **_shade_settings(name))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tss", [False, True], ids=["per_pixel", "tss"])
+def test_replays_count_the_tss_shade_launches(cuda_device, tss):
+    """A replay of the captured frame adds the launches its eager frame
+    makes: one screen-pass launch in the texture-space frame, none in the
+    per-pixel frame."""
+    r = FrameRenderer(_small_sponza(), _graph_cfg(tss))
+    for _ in range(3):
+        r.render()
+        torch.cuda.synchronize()
+    r._react_overflow = False
+    before = cr.launch_counts["tss_shade"]
+    r.render_eager()
+    eager = cr.launch_counts["tss_shade"] - before
+    assert eager == (1 if tss else 0)
+    before = cr.launch_counts["tss_shade"]
+    for _ in range(3):
+        r.render()
+    torch.cuda.synchronize()
+    assert cr.launch_counts["tss_shade"] - before == 3 * eager

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import aniso_inputs as ai
 import golden_configs
 from renderengine_tpu.graph import frame as jframe
 from renderengine_tpu.scene import procedural as jproc
@@ -32,6 +33,7 @@ from renderengine_tpu.scene.camera import ViewProperties as JVP
 from renderengine_tpu.shading import lightchart as jlc
 from renderengine_tpu_torch.graph import frame as tframe
 from renderengine_tpu_torch.graph.frame import FrameRenderer
+from renderengine_tpu_torch.raster import cuda_raster as cr
 from renderengine_tpu_torch.scene import procedural
 from renderengine_tpu_torch.scene.camera import ViewProperties
 from renderengine_tpu_torch.shading import lightchart as lc
@@ -476,29 +478,46 @@ def test_visibility_and_light_tables_match_jax():
         jsd["chart_vis"], jr._baked_exposure))
 
 
+_FRAGS: dict = {}
+
+
+def _screen_fragments():
+    """JAX's resolved opaque fragments of the ``shadows_pcf`` TSS frame
+    and its merged light table, for both packages (memoized): (jr, JAX
+    fragments, JAX light8, port scene, port fragments, port light8, ah,
+    aw, JAX setup, G-buffer)."""
+    if "f" not in _FRAGS:
+        from renderengine_tpu.raster import reference_raster as jrref
+        from renderengine_tpu.raster.setup import corner_clip as jcc
+        from renderengine_tpu.raster.setup import \
+            triangle_setup_corners as jtsc
+
+        jr, _ = _jax_tss()
+        jsd = jr.scene_dev
+        cfg = _port_cfg()
+        u = jnp.asarray(jr.uniform_for_camera())
+        p = jframe.unpack_params(u, jr.n_shadows)
+        vpm = (p["proj"][:, :, None] * p["view"][None, :, :]).sum(1)
+        js = jtsc(jcc(jsd["corner_attr"][..., 0:3], vpm), jsd["n_opaque"],
+                  cfg.width, cfg.height, jr.config.cull_mode)
+        g = jrref.rasterize_reference(js, cfg.height, cfg.width)
+        fr = jlc.resolve_tss(jsd, js.coef, g, cfg.height, cfg.width)
+        ah, aw = jsd["chart_ld"].shape[1:]
+        jl8 = jlc.merge_light_planes(jsd["chart_ld"], jsd["chart_ld"])
+        sd = _port_scene(jr)
+        tl8 = torch.from_numpy(np.array(jl8).view(np.int32))
+        t = {k: torch.from_numpy(np.array(np.asarray(fr[k])))
+             for k in ("chart_uv", "uv", "mat_id", "covered")}
+        _FRAGS["f"] = (jr, fr, jl8, sd, t, tl8, ah, aw, js, g)
+    return _FRAGS["f"]
+
+
 def test_screen_shade_matches_jax_on_the_same_fragments():
     """``tss_shade`` / ``tss_shade_halfres`` (albedo tap + light table) on
     JAX's resolved opaque fragments and light table."""
-    from renderengine_tpu.raster import reference_raster as jrref
-    from renderengine_tpu.raster.setup import corner_clip as jcc
-    from renderengine_tpu.raster.setup import triangle_setup_corners as jtsc
-
-    jr, _ = _jax_tss()
+    jr, fr, jl8, sd, t, tl8, ah, aw, js, g = _screen_fragments()
     jsd = jr.scene_dev
     cfg = _port_cfg()
-    u = jnp.asarray(jr.uniform_for_camera())
-    p = jframe.unpack_params(u, jr.n_shadows)
-    vpm = (p["proj"][:, :, None] * p["view"][None, :, :]).sum(1)
-    js = jtsc(jcc(jsd["corner_attr"][..., 0:3], vpm), jsd["n_opaque"],
-              cfg.width, cfg.height, jr.config.cull_mode)
-    g = jrref.rasterize_reference(js, cfg.height, cfg.width)
-    fr = jlc.resolve_tss(jsd, js.coef, g, cfg.height, cfg.width)
-    ah, aw = jsd["chart_ld"].shape[1:]
-    jl8 = jlc.merge_light_planes(jsd["chart_ld"], jsd["chart_ld"])
-    sd = _port_scene(jr)
-    tl8 = torch.from_numpy(np.array(jl8).view(np.int32))
-    t = {k: torch.from_numpy(np.array(np.asarray(fr[k])))
-         for k in ("chart_uv", "uv", "mat_id", "covered")}
     assert t["covered"].float().mean() > 0.5
     for dither in (False, True):
         kw = dict(slots_used=jr._slots_used, max_aniso=cfg.aniso(),
@@ -522,6 +541,83 @@ def test_screen_shade_matches_jax_on_the_same_fragments():
     for k in ("chart_uv", "uv"):
         _close(tr[k].numpy(), fr[k])
     assert torch.equal(tr["mat_id"], t["mat_id"])
+
+
+# (y0, dither, max_taps, slot 0 used) of a screen-pass call: the headline's
+# settings first
+SHADE_SETTINGS = {"dither_aniso16": (0, True, 16, True),
+                  "exact_aniso16": (0, False, 16, True),
+                  "dither_trilinear": (0, True, 1, True),
+                  "exact_trilinear": (0, False, 1, True),
+                  "no_base_slot": (0, True, 16, False),
+                  "band_y0_odd": (1, True, 16, True)}
+
+
+@pytest.mark.parametrize("setting", list(SHADE_SETTINGS))
+def test_shade_wrapper_on_the_cpu_is_the_plain_composition(setting):
+    """``tss_shade_halfres`` on CPU tensors (JAX's fragments of the
+    ``shadows_pcf`` frame) is ``tss_shade_halfres_plain``, bit for bit,
+    and launches nothing; a band starting on an odd row takes the rows
+    after the first (an even count)."""
+    jr, _, _, sd, t, tl8, ah, aw, _, _ = _screen_fragments()
+    y0, dither, taps, slot0 = SHADE_SETTINGS[setting]
+    planes = [t[k][y0:] for k in ("chart_uv", "uv", "mat_id", "covered")]
+    if y0 % 2:
+        planes = [p[:p.shape[0] // 2 * 2] for p in planes]
+    kw = dict(y0=y0, dither=dither, covered=planes[3],
+              max_aniso=_port_cfg().aniso()._replace(max_taps=taps),
+              slots_used=(slot0,) + tuple(jr._slots_used[1:]))
+    before = dict(cr.launch_counts)
+    got = lc.tss_shade_halfres(sd, *planes[:3], tl8, ah, aw, **kw)
+    assert dict(cr.launch_counts) == before
+    want = lc.tss_shade_halfres_plain(sd, *planes[:3], tl8, ah, aw, **kw)
+    assert got.shape == planes[0].shape[:2] + (4,)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _bad_shade_args(case):
+    """Synthetic screen-pass arguments (``aniso_inputs.tss_shade_case``)
+    with one fault: (args, kwargs, the error's words)."""
+    sc, cu, uv, mat, l8, ah, aw, cov = ai.tss_shade_case(3, 12, 20)
+    kw = {"covered": cov}
+    if case == "chart_uv_float64":
+        cu = cu.double()
+    elif case == "uv_shape":
+        uv = uv[:, 1:]
+    elif case == "mat_id_int64":
+        mat = mat.long()
+    elif case == "covered_uint8":
+        kw["covered"] = cov.to(torch.uint8)
+    elif case == "light8_shape":
+        l8 = l8[1:]
+    elif case == "mat_all_float32":
+        sc = dict(sc, mat_all=sc["mat_all"].float())
+    elif case == "odd_band_height":
+        cu, uv, mat = cu[1:], uv[1:], mat[1:]
+        kw = {"covered": cov[1:], "y0": 1}
+    elif case == "one_row":
+        cu, uv, mat = cu[:1], uv[:1], mat[:1]
+        kw = {"covered": cov[:1]}
+    elif case == "device_mix":
+        l8 = torch.empty_like(l8, device="meta")
+    words = {"chart_uv_float64": "chart_uv", "uv_shape": "uv must",
+             "mat_id_int64": "mat_id", "covered_uint8": "covered",
+             "light8_shape": "light8", "mat_all_float32": "float16",
+             "odd_band_height": "even height", "one_row": "2 x 2",
+             "device_mix": "device"}[case]
+    return (sc, cu, uv, mat, l8, ah, aw), kw, words
+
+
+@pytest.mark.parametrize("case", [
+    "chart_uv_float64", "uv_shape", "mat_id_int64", "covered_uint8",
+    "light8_shape", "mat_all_float32", "odd_band_height", "one_row",
+    "device_mix"])
+def test_shade_wrapper_refuses_bad_arguments(case):
+    """The wrapper checks dtypes, shapes and devices on every device (the
+    same checks guard the kernel's launch) before anything runs."""
+    args, kw, words = _bad_shade_args(case)
+    with pytest.raises(ValueError, match=words):
+        lc.tss_shade_halfres(*args, **kw)
 
 
 # --- mirror of TestPreshadedHalfres ------------------------------------------
