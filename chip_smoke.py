@@ -144,6 +144,17 @@ Sponza (260k triangles, 200 textures of 512^2), checking their output:
   starting on the odd row 537, replayed from a CUDA graph) and timed
   beside its bytes bound (``tss_shade_bound``); the frame with the plain
   version in its place is the same.
+- the point-light cube shadow (phase k1-cube, ``cube_face_phase``): the
+  TSS headline over ``sponza_cube_scene`` (the nave lamp's six 4096^2
+  faces after the sun's and the spot's maps) renders 3 shadow-dirty
+  frames (8 depth-only K1 launches a shadow pass, 6 of them the faces;
+  no pair dropped); each face's K1
+  launch is held bit for bit against its plain version and timed
+  (``time_shape``) beside its bound (``k1_bound``); the kernel row is
+  the densest face, the one with the most pairs (the face looking down
+  is nearly empty: the depth pass culls front faces, and the floor faces
+  the lamp). It runs alone with
+  ``python3 -c "import chip_smoke; chip_smoke.cube_face_main()"``.
 Each phase is fatal: any failure exits non-zero without the final line.
 Before the last line it prints the card's name and power limit (as
 ``nvidia-smi`` reports them), one JSON line of per-kernel numbers and one
@@ -1253,6 +1264,121 @@ def tss_shade_phase(fr, cr, scene, tss_cfg, dev, reset_counts):
     res["wall_s"] = time.time() - t_phase
     log(f"phase tss-shade: {res}")
     return rows, res
+
+
+CUBE_FACES = ("+X", "-X", "+Y", "-Y", "+Z", "-Z")
+
+
+def cube_face_phase(fr, cr, tss_cfg):
+    """Phase k1-cube: the nave lamp's cube faces through K1 at the
+    benchmark's ``sponza1080_tss_cube`` shapes. The headline renderer over
+    ``sponza_cube_scene`` renders its first frame and 3 shadow-dirty ones
+    (replays of the shadow program: 8 depth-only K1 launches each, 6 of
+    them the faces, read from K1's own ``variant_counts``; no pair
+    dropped); then at the last
+    frame's transforms each face's launch is held bit for bit against its
+    plain version and timed (``time_shape``) beside its bound
+    (``k1_bound``). Returns the kernel row of the densest face (the most
+    pairs) and the phase's record (every face's numbers)."""
+    from renderengine_tpu_torch.scene import procedural
+
+    t_phase = time.time()
+    r = fr.FrameRenderer(procedural.sponza_cube_scene(
+        width=SPONZA_W, height=SPONZA_H), tss_cfg)
+    (base,) = r._cube_bases
+    r.render()
+    torch.cuda.synchronize()
+    before = cr.variant_counts[(0, False, False)]
+    pc = r.program_counts
+    passes = pc["shadow_replays"] + pc["shadow_captures"]
+    for _ in range(3):
+        r.mark_shadows_dirty()
+        r.render()
+    torch.cuda.synchronize()
+    launches = cr.variant_counts[(0, False, False)] - before
+    res = {"n_maps": r.n_shadows, "cube_base": base,
+           "shadow_budget": r._shadow_budget_val,
+           "shadow_overflow": r.shadow_overflow,
+           "depth_launches": launches,
+           "shadow_passes": (pc["shadow_replays"] + pc["shadow_captures"]
+                             - passes),
+           "faces": {}}
+    # each replay, and each capture's warm-up, renders the 8 maps
+    if (r.shadow_overflow or res["shadow_passes"] < 3
+            or launches != r.n_shadows * res["shadow_passes"]):
+        raise AssertionError(f"cube shadow frames: {res}")
+    e = r.config.shadow_extent
+    ntx = -(-e // cr.TILE_W)
+    svp = fr.unpack_params(r._u, r.n_shadows)["shadow_viewproj"]
+    rows = {}
+    for f, name in enumerate(CUBE_FACES):
+        s = fr.shadow_setup(r.scene_dev, svp[base + f], e)
+        prep = cr.prepare_pairs(s, e, e, max_pairs=r._shadow_budget_val)
+        if int(prep.bins.n_overflow):
+            raise AssertionError(f"cube face {name}: pair overflow")
+        err, st, plain_ms = k1_plain_check(cr, prep, ntx, e, e,
+                                           f"cube face {name} {e}^2")
+        if err != 0.0:
+            raise AssertionError(f"cube face {name} is not bit-exact")
+        b = prep.bins
+        pairs, tiles = int(b.counts.sum()), int(b.counts.shape[0])
+        args = (prep.pair_data, b.starts, b.counts, ntx, e, e)
+        (solo,) = solo_counts(b.counts)
+        solo_args = args[:2] + (solo,) + args[3:]
+        t = time_shape(f"cube face {name}",
+                       lambda: cr.raster_tiles(*args, n_attrs=0),
+                       lambda: cr.raster_tiles(*solo_args, n_attrs=0))
+        bound_ms, by, ops, nbytes = k1_bound(
+            pairs, tiles, prep.pair_data.shape[1], 0, st["wins"])
+        res["faces"][name] = {"pairs": pairs, "wins": st["wins"],
+                              "max_per_tile": int(b.counts.max()),
+                              "plain_ms": plain_ms, "bound_ms": bound_ms,
+                              "bound_by": by, "ops": ops, "bytes": nbytes,
+                              **t}
+        log(f"phase k1-cube: face {name}: {pairs} pairs, {st['wins']} depth "
+            f"wins; K1 {t['ms']:.4f} ms, device {t['device_ms']!r} ms, "
+            f"bound {bound_ms:.4f} ms ({by})")
+        rows[name] = {
+            "name": "raster_tile_cube_face", "route": "cuda",
+            "source": SOURCE, "replaces": REPLACES, "launches": launches,
+            "max_abs_err": err, "ms": t["ms"], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+            "in_graph_ms": t["in_graph_ms"],
+            "densest_tile_ms": t["densest_tile_ms"],
+            "launch_over_densest": t["launch_over_densest"],
+            "device_ms": t["device_ms"], "host_ms": t["host_ms"],
+            "pairs": pairs}
+        del prep, s, args, solo_args
+    del r
+    torch.cuda.empty_cache()
+    res["densest"] = max(rows, key=lambda n: rows[n]["pairs"])
+    res["wall_s"] = time.time() - t_phase
+    log(f"phase k1-cube: {json.dumps(res)}")
+    return [rows[res["densest"]]], res
+
+
+def cube_face_main() -> None:
+    """Phase k1-cube alone: build the kernels, run ``cube_face_phase`` on
+    the headline configuration, print the card and the kernel row."""
+    from renderengine_tpu_torch.core.config import RenderConfig
+    from renderengine_tpu_torch.graph import frame as fr
+    from renderengine_tpu_torch.raster import cuda_raster as cr
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cr.build()
+    smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,"
+                          "power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    try:
+        rows, _ = cube_face_phase(fr, cr, RenderConfig(
+            width=SPONZA_W, height=SPONZA_H, shadow_extent=4096,
+            debug_views=False, texture_space=True, tss_preshaded_blend=True,
+            dither_trilinear=True, sky_halfres=True))
+    except Exception as e:  # noqa: BLE001 — the phase is fatal
+        fail("k1-cube", e)
+    print(smi.stdout.strip(), flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
 
 
 def main() -> None:
@@ -2405,6 +2531,14 @@ def main() -> None:
     except Exception as e:  # noqa: BLE001
         fail(phase, e)
 
+    # phase: the point-light cube's six 4096^2 faces through K1 on the
+    # cube configuration, bit-exact against the plain version and timed
+    phase = "k1-cube"
+    try:
+        cube_rows, cube_res = cube_face_phase(fr, cr, tss_cfg)
+    except Exception as e:  # noqa: BLE001
+        fail(phase, e)
+
     # phase: the compiled frame. For the per-pixel default, the TSS
     # headline and the app's per-pixel config (2048^2 maps), each with the
     # poll on: the renderer captures its frame and shadow programs at init
@@ -3210,7 +3344,7 @@ def main() -> None:
              b["plain_ms"], b["bound"][0], b["bound"][1],
              k2=name.startswith("merged"), pairs=b["pairs"])
          for name, b in ssaa2_rows.items()] + aniso_rows + peel_rows \
-        + shade_rows
+        + shade_rows + cube_rows
     for k in kernels:
         log(f"{k['name']}: {k['ms']!r} ms in this run, in a graph "
             f"{k['in_graph_ms']!r} ms, device "
@@ -3274,6 +3408,7 @@ def main() -> None:
         "graph": graph_res, "app": app, "sharded": sharded_res,
         "orbit": orbit_res, "ssaa2": ssaa2_res, "workspace": ws_res,
         "aniso": aniso_res, "tss_peel": peel_res, "tss_shade": shade_res,
+        "cube": cube_res,
         "ssaa2_kernels": {k: {"ops": b["bound"][2], "bytes": b["bound"][3]}
                           for k, b in ssaa2_rows.items()},
         "width": SPONZA_W, "height": SPONZA_H, "card": card,

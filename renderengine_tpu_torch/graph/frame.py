@@ -32,6 +32,7 @@ composite after the translucent pass.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 
@@ -268,7 +269,8 @@ def shadow_setup(scene, light_viewproj, extent: int):
 
 def render_shadow_maps(scene, shadow_viewproj, extent: int,
                        n_shadows: int, rc: RasterConfig, backend: str,
-                       max_pairs: int | None = None, n_slices: int = 1):
+                       max_pairs: int | None = None, n_slices: int = 1,
+                       cube_bases=()):
     """Depth-only raster per shadow map (reference ``ShadowSystem::Render``).
     shadow_viewproj: [NS,4,4]. Returns ([NS,E,E] f32, overflow): the
     shadow views' tile spans differ from the camera view's, so their
@@ -279,35 +281,52 @@ def render_shadow_maps(scene, shadow_viewproj, extent: int,
     (a 4096^2 map is 65536 kernel tiles, well within one launch on this
     card); slices go through the same ``y0``/``full_height`` path an
     image-row split of the frame uses, and ``max_pairs`` is then the
-    per-slice budget."""
+    per-slice budget.
+
+    ``cube_bases``: the first map of each point light's six cube faces
+    (``_cube_shadow_bases``); each face renders inside the span
+    ``frame.shadow_cube`` (a region entered six times sums its time)."""
     if extent % n_slices:
         raise ValueError("n_slices must divide the shadow extent")
     slice_h = extent // n_slices
+    faces = {b + f for b in cube_bases for f in range(6)}
     maps = []
     overflow = torch.zeros((), dtype=torch.int64,
                            device=shadow_viewproj.device)
     for si in range(n_shadows):
-        s = shadow_setup(scene, shadow_viewproj[si], extent)
-        budget = max_pairs or _pair_budget(s.coef.shape[0], rc.pairs_per_tri)
-        rows = []
-        for y0 in range(0, extent, slice_h):
-            ss = s if n_slices == 1 else restrict_rows(s, y0, slice_h, extent)
-            prep = None
-            if backend == "cuda":
-                prep = cuda_raster.prepare_pairs(ss, slice_h, extent,
-                                                 max_pairs=budget, y0=y0,
-                                                 full_height=extent)
-                overflow = overflow + prep.bins.n_overflow
-            g, _ = rasterize(ss, slice_h, extent, backend, prepared=prep,
-                             max_pairs=budget, y0=y0, full_height=extent)
-            rows.append(g.depth)
-        maps.append(rows[0] if n_slices == 1 else torch.cat(rows, 0))
+        with (span("frame.shadow_cube") if si in faces
+              else contextlib.nullcontext()):
+            s = shadow_setup(scene, shadow_viewproj[si], extent)
+            budget = max_pairs or _pair_budget(s.coef.shape[0],
+                                               rc.pairs_per_tri)
+            rows = []
+            for y0 in range(0, extent, slice_h):
+                ss = s if n_slices == 1 else restrict_rows(s, y0, slice_h,
+                                                           extent)
+                prep = None
+                if backend == "cuda":
+                    prep = cuda_raster.prepare_pairs(ss, slice_h, extent,
+                                                     max_pairs=budget, y0=y0,
+                                                     full_height=extent)
+                    overflow = overflow + prep.bins.n_overflow
+                g, _ = rasterize(ss, slice_h, extent, backend, prepared=prep,
+                                 max_pairs=budget, y0=y0, full_height=extent)
+                rows.append(g.depth)
+            maps.append(rows[0] if n_slices == 1 else torch.cat(rows, 0))
     return torch.stack(maps), overflow
+
+
+def _cube_shadow_bases(dev_np: dict, shadow_lights) -> tuple:
+    """The first map of each point light's six cube faces (the lights whose
+    ``_static_shadow_lights`` flag is 6), decided once on the host."""
+    si = np.asarray(dev_np["light_shadow_index"])
+    return tuple(int(si[i]) for i, f in enumerate(shadow_lights) if f == 6)
 
 
 def render_shadow_pass(scene, uniform, config: RenderConfig, n_shadows: int,
                        backend: str = "cuda", max_pairs: int | None = None,
-                       return_overflow: bool = False, n_slices: int = 1):
+                       return_overflow: bool = False, n_slices: int = 1,
+                       cube_bases=()):
     """Standalone shadow depth pass, cached across frames by the caller —
     the reference renders it once until marked dirty
     (``RenderScene.cpp:170-181``). Returns the packed maps
@@ -317,7 +336,7 @@ def render_shadow_pass(scene, uniform, config: RenderConfig, n_shadows: int,
         maps, overflow = render_shadow_maps(
             scene, params["shadow_viewproj"], config.shadow_extent,
             n_shadows, config.raster, backend, max_pairs=max_pairs,
-            n_slices=n_slices)
+            n_slices=n_slices, cube_bases=cube_bases)
         # pack once per (cached) render: 3x3 PCF becomes one block gather
         packed = shadow_mod.pack_shadow_blocks(maps)
     return (packed, overflow) if return_overflow else packed
@@ -991,6 +1010,7 @@ class FrameRenderer:
         self._has_translucent = int(dev_np["n_blend"]) > 0
         self._has_mask = int(dev_np.get("n_mask", 0)) > 0
         self._shadow_lights = _static_shadow_lights(dev_np)
+        self._cube_bases = _cube_shadow_bases(dev_np, self._shadow_lights)
         # the budgets below are sized at init from the initial camera; every
         # one has an overflow counter in the stats
         tune = (self._has_controller and backend == "cuda"
@@ -1101,9 +1121,12 @@ class FrameRenderer:
                     *(torch.zeros_like(t) for t in maps))
             if config.texture_space:
                 # their warm-ups bake from the zero pack; the first
-                # render() is shadow-dirty and bakes again before its frame
-                for name, key, fn in self.tss_bakes(self.n_shadows > 0):
-                    self._programs.get(name, key, fn)
+                # render() is shadow-dirty and bakes again before its frame.
+                # Captured with the stamps bound, as a recapture inside
+                # render() is (the cube lookup's ``frame.vis_cube``)
+                with profiling.stamping(self._stamps):
+                    for name, key, fn in self.tss_bakes(self.n_shadows > 0):
+                        self._programs.get(name, key, fn)
             self._graphs = True
             self._programs.get("frame", self.config, self._frame_fn())
 
@@ -1161,7 +1184,8 @@ class FrameRenderer:
         with profiling.stamping(self._stamps):
             return render_shadow_pass(
                 self.scene_dev, self._u, cfg, self.n_shadows, self.backend,
-                max_pairs=budget, return_overflow=True)
+                max_pairs=budget, return_overflow=True,
+                cube_bases=self._cube_bases)
 
     def tss_bakes(self, visibility: bool) -> list:
         """The texture-space bakes over this renderer's state (module

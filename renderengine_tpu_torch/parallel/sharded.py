@@ -200,7 +200,8 @@ def _gathered_vo(local: dict, params: dict, mesh: Mesh) -> VertexOutputs:
 def render_shadow_pass_sharded(scene, params, config: RenderConfig,
                                n_shadows: int, mesh: Mesh,
                                backend: str = "cuda",
-                               max_pairs: int | None = None):
+                               max_pairs: int | None = None,
+                               cube_bases=()):
     """Geometry-parallel shadow depth pass: each rank rasters its
     contiguous share of the (padded) triangle list into full-extent maps,
     ``all_reduce(MIN)`` merges them and every rank packs the same blocks.
@@ -223,7 +224,7 @@ def render_shadow_pass_sharded(scene, params, config: RenderConfig,
              "n_tris": (scene["n_tris"] - lo).clamp(0, ts)}
     maps, overflow = fgraph.render_shadow_maps(
         local, params["shadow_viewproj"], config.shadow_extent, n_shadows,
-        config.raster, backend, max_pairs=max_pairs)
+        config.raster, backend, max_pairs=max_pairs, cube_bases=cube_bases)
     overflow = overflow.reshape(1)
     dist.all_reduce(maps, op=dist.ReduceOp.MIN)
     dist.all_reduce(overflow, op=dist.ReduceOp.SUM)
@@ -388,7 +389,8 @@ class ShardedRenderer(fgraph.FrameRenderer):
     def _shadow_pass(self, cfg: RenderConfig, budget: int):
         return render_shadow_pass_sharded(
             self.scene_dev, unpack_params(self._u, self.n_shadows), cfg,
-            self.n_shadows, self.mesh, self.backend, max_pairs=budget)
+            self.n_shadows, self.mesh, self.backend, max_pairs=budget,
+            cube_bases=self._cube_bases)
 
     def program_stats(self) -> dict:
         """``FrameRenderer.program_stats`` and the collective transport."""

@@ -463,3 +463,22 @@ def sponza_scene(width=1920, height=1080, seed=0,
                        fov_degrees=60.0, near=0.1, far=120.0,
                        width=width, height=height, exposure=1.0)
     return sc
+
+
+def sponza_cube_scene(width=1920, height=1080, seed=0, n_textures=200,
+                      target_tris=260_000, tex_size=None,
+                      rich=None) -> Scene:
+    """``sponza_scene`` whose nave lamp (the point light at (0, 3, 0), a
+    12 m falloff) also casts its shadow: six perspective cube-face maps
+    (+X -X +Y -Y +Z -Z) after the sun's and the spot's, so with the spot
+    the maps are sun 0, spot 1, lamp 2-7. Lights, materials, textures,
+    meshes and camera are ``sponza_scene``'s; the faces take the
+    renderer's one ``shadow_extent`` and the fit of
+    ``fitting.compute_point_shadow_transforms``."""
+    sc = sponza_scene(width=width, height=height, seed=seed,
+                      n_textures=n_textures, target_tris=target_tris,
+                      tex_size=tex_size, rich=rich)
+    lamp = next(i for i, lt in enumerate(sc.lights.lights)
+                if lt.type == LightType.POINT)
+    sc.create_shadow_map(lamp)
+    return sc

@@ -29,10 +29,13 @@ has no analog (it shades every fragment every frame).
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ..utils.profiling import span
 
 ATLAS_W = 1024          # fixed atlas width (texels)
 MAX_R = 256             # largest chart edge sample count (square side R+1)
@@ -407,11 +410,14 @@ def bake_visibility(scene, geo, shadow_maps, shadow_transforms,
             vis.append(torch.ones(geo["mat_id"].shape, dtype=torch.float32,
                                   device=pos.device))
             continue
-        s = compute_shadow_directional(
-            shadow_maps, shadow_transforms, scene["light_shadow_index"][li],
-            scene["light_pos"][li], pos, normal,
-            penumbra_tiles=0, cube=shadow_lights[li] == 6)
-        vis.append(1.0 - s)
+        cube = shadow_lights[li] == 6
+        # a point light's six-face select over every texel: its own span
+        with span("frame.vis_cube") if cube else contextlib.nullcontext():
+            s = compute_shadow_directional(
+                shadow_maps, shadow_transforms,
+                scene["light_shadow_index"][li], scene["light_pos"][li], pos,
+                normal, penumbra_tiles=0, cube=cube)
+            vis.append(1.0 - s)
     return torch.stack(vis, 0)
 
 

@@ -146,7 +146,8 @@ def eager_frame(renderer, view_props=None, dirty: bool = False):
     if dirty:
         maps, sov = render_shadow_pass(
             r.scene_dev, r._u, r.config, r.n_shadows, r.backend,
-            max_pairs=r._shadow_budget_val, return_overflow=True)
+            max_pairs=r._shadow_budget_val, return_overflow=True,
+            cube_bases=r._cube_bases)
         int(sov)
     if r.config.texture_space:
         bake_tss(tss_bakes(r.scene_dev, r._u, maps, r.n_shadows,

@@ -32,15 +32,20 @@ from torch.profiler import record_function
 SPANS = ("frame.shadow", "frame.tss_bake", "frame.tss_spec", "frame.setup",
          "frame.bin_pack", "frame.raster", "frame.merged_raster",
          "frame.shade", "frame.mask", "frame.sky", "frame.peel_raster",
-         "frame.peel_shade", "frame.overlay", "frame.encode")
+         "frame.peel_shade", "frame.overlay", "frame.encode",
+         "frame.shadow_cube", "frame.vis_cube")
 # the regions whose device time a ``Stamps`` buffer keeps: ``frame``, the
 # frame program from its first operation to its last (no range), and the
 # spans the shading, binning, shadow, raster and resolve readings add up
-# (``frame.encode`` holds the ``ssaa`` box resolve and the sRGB encode)
+# (``frame.encode`` holds the ``ssaa`` box resolve and the sRGB encode;
+# ``frame.shadow_cube`` a point light's six faces inside ``frame.shadow``,
+# ``frame.vis_cube`` its cube lookup inside the visibility bake, entered
+# only by scenes with a point-light shadow)
 STAMPED = ("frame", "frame.tss_spec", "frame.setup", "frame.bin_pack",
            "frame.shade", "frame.mask", "frame.peel_shade", "frame.shadow",
            "frame.tss_bake", "frame.merged_raster", "frame.raster",
-           "frame.peel_raster", "frame.encode")
+           "frame.peel_raster", "frame.encode", "frame.shadow_cube",
+           "frame.vis_cube")
 _SLOT = {n: i for i, n in enumerate(STAMPED)}
 
 _bound = None        # the Stamps of the program being dispatched

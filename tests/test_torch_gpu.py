@@ -43,6 +43,7 @@ from renderengine_tpu_torch.shading import lightchart as lc
 from renderengine_tpu_torch.shading import sampling
 from renderengine_tpu_torch.tools import goldens
 from renderengine_tpu_torch.tools import split_stress as ss
+from renderengine_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -1635,3 +1636,93 @@ def test_replays_count_the_tss_shade_launches(cuda_device, tss):
         r.render()
     torch.cuda.synchronize()
     assert cr.launch_counts["tss_shade"] - before == 3 * eager
+
+
+# --- the point-light cube shadow (the nave lamp's six faces) ---------------
+
+DEPTH_ONLY = (0, False, False)   # K1's variant key of a shadow map launch
+
+
+def _cube_renderer():
+    """The benchmark's cube configuration (``sponza1080_tss_cube``: the
+    texture-space headline over ``sponza_cube_scene``, 8 maps of 4096^2,
+    the lamp's faces 2-7), its controller frozen after two frames."""
+    r = FrameRenderer(
+        procedural.sponza_cube_scene(width=1920, height=1080, n_textures=200,
+                                     target_tris=260_000),
+        RenderConfig(width=1920, height=1080, shadow_extent=4096,
+                     debug_views=False, texture_space=True,
+                     tss_preshaded_blend=True, dither_trilinear=True,
+                     sky_halfres=True))
+    for _ in range(2):
+        r.render()
+        torch.cuda.synchronize()
+    r._react_overflow = False
+    return r
+
+
+@pytest.mark.gpu
+def test_cube_shadow_replays_the_eager_pass(cuda_device):
+    """Three shadow-dirty frames of the cube configuration replay the
+    shadow program: 8 depth-only K1 launches each (the sun's and the
+    spot's maps and the lamp's six faces; the texture-space frame's own
+    passes run in K2), the stamped regions
+    ``frame.shadow_cube`` and ``frame.vis_cube``, no pair dropped, and the
+    packed maps the frame reads equal the eager pass's at the same
+    transforms byte for byte; each face through K1 equals its plain
+    raster bit for bit."""
+    r = _cube_renderer()
+    assert r.n_shadows == 8 and r._cube_bases == (2,)
+    before = cr.variant_counts[DEPTH_ONLY]
+    shadows = r.program_counts["shadow_replays"]
+    for _ in range(3):
+        r.mark_shadows_dirty()
+        _, st = r.render()
+    torch.cuda.synchronize()
+    assert cr.variant_counts[DEPTH_ONLY] - before == 3 * 8
+    # the replayed shadow and visibility programs stamp the cube's regions
+    ns = dict(zip(profiling.STAMPED, st["pass_ns"].tolist()))
+    assert 0 < ns["frame.shadow_cube"] < ns["frame.shadow"]
+    assert 0 < ns["frame.vis_cube"] < ns["frame.tss_bake"]
+    assert r.program_counts["shadow_replays"] == shadows + 3
+    assert r.shadow_overflow == 0
+    eager, sov = fr.render_shadow_pass(
+        r.scene_dev, r._u, r.config, r.n_shadows, r.backend,
+        max_pairs=r._shadow_budget_val, return_overflow=True,
+        cube_bases=r._cube_bases)
+    assert int(sov) == 0
+    assert all(torch.equal(a, b) for a, b in zip(r._shadow_maps, eager))
+    svp = fr.unpack_params(r._u, r.n_shadows)["shadow_viewproj"]
+    for si in range(2, 8):
+        s = fr.shadow_setup(r.scene_dev, svp[si], 4096)
+        prep = cr.prepare_pairs(s, 4096, 4096,
+                                max_pairs=r._shadow_budget_val)
+        assert int(prep.bins.n_overflow) == 0
+        b = prep.bins
+        args = (prep.pair_data, b.starts, b.counts, 4096 // cr.TILE_W, 4096,
+                4096, 0, 0)
+        assert torch.equal(cr.raster_tiles(*args),
+                           cr._raster_tiles_plain(*args)), si
+
+
+@pytest.mark.gpu
+def test_no_cube_face_without_a_point_light_shadow(cuda_device):
+    """A ``sponza_scene`` renderer (the sun's and the spot's maps only)
+    launches no cube face on its shadow-dirty frames: 2 depth-only K1
+    launches a shadow pass (each replay, and each capture's warm-up), and
+    its replayed frame stamps no cube region."""
+    r = FrameRenderer(_small_sponza(), _graph_cfg(True))
+    assert r._cube_bases == ()
+    before = cr.variant_counts[DEPTH_ONLY]
+    passes = (r.program_counts["shadow_replays"]
+              + r.program_counts["shadow_captures"])
+    for _ in range(3):
+        r.mark_shadows_dirty()
+        _, st = r.render()
+    torch.cuda.synchronize()
+    passes = (r.program_counts["shadow_replays"]
+              + r.program_counts["shadow_captures"] - passes)
+    assert passes >= 3
+    assert cr.variant_counts[DEPTH_ONLY] - before == 2 * passes
+    ns = dict(zip(profiling.STAMPED, st["pass_ns"].tolist()))
+    assert ns["frame.shadow_cube"] == ns["frame.vis_cube"] == 0

@@ -191,8 +191,10 @@ def test_without_a_profiler_render_leaves_no_record_and_opens_no_range(
 def test_every_range_is_a_host_span_or_a_frame_pass(scene, monkeypatch):
     """Every range the port opens (an eager default frame, a texture-space
     shadow-dirty frame, a ``RenderLoop`` frame) starts with ``host.`` or
-    is one of the fourteen ``frame.*`` passes."""
-    assert len(profiling.SPANS) == 14
+    is one of the sixteen ``frame.*`` passes (two of them, the point-light
+    cube's ``frame.shadow_cube`` and ``frame.vis_cube``, entered only by a
+    scene whose point light casts its shadow)."""
+    assert len(profiling.SPANS) == 16
     assert all(n.startswith("frame.") for n in profiling.SPANS)
     session = _Ranges(monkeypatch)
     r = FrameRenderer(scene, _BASE, device="cpu")
